@@ -10,11 +10,20 @@ stages. Capacities are bucketed to powers of two.
 Device dtypes: positions/intensity/rgb/time-offset float32, ring and
 return_type int32; narrow host dtypes are restored at egress. ``time`` is
 carried as float32 offsets from a float64 host-side ``time_base``.
+
+A buffer may carry a leading batch axis (positions [B, 3, N], mask [B, N],
+attributes [B, ..., N]): ``stack_buffers`` and ``unstack_buffer`` are the
+counterparts of the reference's ``tree_map(jnp.stack)`` and
+``tree_map(x[i])``. The ops take either form.
+
+Entry points put their tensors on ``resolve_device(device)``: the device
+asked for, else ``cuda:0``. Without a card they raise unless the caller
+asks for the CPU.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +37,9 @@ __all__ = [
     "to_soa",
     "valid_count",
     "pad_to_capacity",
+    "resolve_device",
+    "stack_buffers",
+    "unstack_buffer",
 ]
 
 #: Smallest capacity bucket; below this every scan shares one bucket.
@@ -65,9 +77,10 @@ class ScanBuffer:
     """Padded channel-major struct-of-arrays point buffer.
 
     Attributes:
-        positions: float32[3, capacity] — rows are x, y, z.
-        mask: bool[capacity]; True for live points.
-        attributes: dict of per-point tensors, each [capacity] or [C, capacity].
+        positions: float32[..., 3, capacity] — rows are x, y, z.
+        mask: bool[..., capacity]; True for live points.
+        attributes: dict of per-point tensors, each [..., capacity] or
+            [..., C, capacity]; the leading ``...`` is the mask's.
     """
 
     positions: torch.Tensor
@@ -83,16 +96,21 @@ class ScanBuffer:
         return self.positions.device
 
     @property
+    def batch_shape(self) -> torch.Size:
+        """``()`` for one scan, ``(B,)`` for a batch."""
+        return self.mask.shape[:-1]
+
+    @property
     def x(self) -> torch.Tensor:
-        return self.positions[0]
+        return self.positions[..., 0, :]
 
     @property
     def y(self) -> torch.Tensor:
-        return self.positions[1]
+        return self.positions[..., 1, :]
 
     @property
     def z(self) -> torch.Tensor:
-        return self.positions[2]
+        return self.positions[..., 2, :]
 
     def replace(self, **kwargs) -> "ScanBuffer":
         return dataclasses.replace(self, **kwargs)
@@ -112,23 +130,61 @@ def bucket_capacity(n: int, minimum: int = MIN_CAPACITY) -> int:
 
 
 def valid_count(buf: ScanBuffer) -> torch.Tensor:
-    """Number of live points, as a 0-d int64 tensor on the buffer's device."""
-    return buf.mask.sum()
+    """Number of live points per scan, int64 of the batch shape."""
+    return buf.mask.sum(-1)
+
+
+def resolve_device(device: torch.device | str | None = None) -> torch.device:
+    """The device an entry point puts its tensors on: ``device`` when given,
+    else ``cuda:0``. Raises when none is given and there is no CUDA card."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on cuda:0 by default; pass "
+            "device='cpu' to run its plain PyTorch versions on the CPU"
+        )
+    return torch.device("cuda:0")
+
+
+def stack_buffers(bufs: Sequence[ScanBuffer]) -> ScanBuffer:
+    """Same-capacity single-scan buffers -> one buffer with a batch axis."""
+    return ScanBuffer(
+        positions=torch.stack([b.positions for b in bufs]),
+        mask=torch.stack([b.mask for b in bufs]),
+        attributes={
+            k: torch.stack([b.attributes[k] for b in bufs])
+            for k in bufs[0].attributes
+        },
+    )
+
+
+def unstack_buffer(buf: ScanBuffer) -> List[ScanBuffer]:
+    """A batched buffer -> its scans (views, no copies)."""
+    return [
+        ScanBuffer(
+            positions=buf.positions[i],
+            mask=buf.mask[i],
+            attributes={k: v[i] for k, v in buf.attributes.items()},
+        )
+        for i in range(buf.mask.shape[0])
+    ]
 
 
 def from_soa(
     soa: Dict[str, np.ndarray],
     capacity: Optional[int] = None,
     metadata: Optional[dict] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> Tuple[ScanBuffer, dict]:
-    """Host SoA dict -> padded ScanBuffer on ``device``.
+    """Host SoA dict -> padded ScanBuffer on ``resolve_device(device)``.
 
     Host arrays use the point-major (N,)/(N, C) convention; they are
     transposed to channel-major here. RGB uint8 (N, 3) is normalized to
     [0, 1] float. Returns ``(buffer, metadata)``; metadata gains
     ``time_base`` when a time attribute is present.
     """
+    device = resolve_device(device)
     metadata = dict(metadata or {})
     positions = np.asarray(soa["positions"], dtype=np.float32)
     n = positions.shape[0]

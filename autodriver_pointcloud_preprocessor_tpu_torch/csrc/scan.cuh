@@ -1,19 +1,24 @@
-// Three-phase stream scan over a flag row, shared by the compaction (K1)
-// and segmented-sum (K2) kernels.
+// Three-phase stream scan over flag rows, shared by the compaction (K1)
+// and segmented-sum (K2) kernels. Every phase runs per batch element: the
+// flags are [batch, n], element b's row starting at b * n, and each
+// element's ranks count within its own row only.
 //
-//   1. tile_count_kernel: each 256-thread block counts the set flags of its
-//      1024-column tile (__syncthreads_count, 4 columns per thread).
-//   2. tile_scan_kernel: one 1024-thread block turns the tile counts into
-//      exclusive tile offsets (warp-shuffle scan, serial over chunks of
-//      1024 tiles); offsets[num_tiles] holds the total.
-//   3. tile_ranks (called by each kernel's own scatter phase): a block
-//      re-ranks its tile's columns with warp ballots, in column order, and
-//      adds its tile offset -> the global exclusive rank of every set flag.
+//   1. tile_count_kernel, grid (tiles, batch): each 256-thread block counts
+//      the set flags of its 1024-column tile (__syncthreads_count, 4 columns
+//      per thread) into counts[b * tiles + tile].
+//   2. tile_scan_kernel, grid (batch): one 1024-thread block per element
+//      turns its tile counts into exclusive tile offsets (warp-shuffle scan,
+//      serial over chunks of 1024 tiles); offsets[b * (tiles + 1) + tiles]
+//      holds the element's total.
+//   3. tile_ranks (called by each kernel's own scatter phase, grid (tiles,
+//      batch)): a block re-ranks its tile's columns with warp ballots, in
+//      column order, and adds its tile offset -> the exclusive rank, within
+//      the element, of every set flag.
 //
-// Phase 1 and 3 read the flag row once each (1 byte per column); phase 2
+// Phase 1 and 3 read the flag rows once each (1 byte per column); phase 2
 // touches 4 bytes per 1024 columns. The scan is bound by the launch
 // latency of its three kernels at the main path's sizes (65536-131072
-// columns), not by bytes.
+// columns a scan), not by bytes; a batch shares the three launches.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,8 +40,11 @@ __device__ __forceinline__ bool scan_flag(const uint8_t* flags, int col, int n,
   return col < n && col >= skip_first && flags[col] != 0;
 }
 
+// Element blockIdx.y of a (tiles, batch) grid: its flag row and tile counts.
 __global__ void tile_count_kernel(const uint8_t* __restrict__ flags, int n,
                                   int skip_first, int* __restrict__ counts) {
+  flags += (size_t)blockIdx.y * n;
+  counts += (size_t)blockIdx.y * gridDim.x;
   const int base = blockIdx.x * kScanTile;
   int total = 0;
 #pragma unroll
@@ -47,8 +55,11 @@ __global__ void tile_count_kernel(const uint8_t* __restrict__ flags, int n,
   if (threadIdx.x == 0) counts[blockIdx.x] = total;
 }
 
+// Element blockIdx.x of a (batch) grid.
 __global__ void tile_scan_kernel(const int* __restrict__ counts, int num_tiles,
                                  int* __restrict__ offsets) {
+  counts += (size_t)blockIdx.x * num_tiles;
+  offsets += (size_t)blockIdx.x * (num_tiles + 1);
   __shared__ int warp_sums[32];
   __shared__ int carry;
   const int lane = threadIdx.x & 31;
@@ -86,9 +97,9 @@ __global__ void tile_scan_kernel(const int* __restrict__ counts, int num_tiles,
   if (threadIdx.x == 0) offsets[num_tiles] = carry;
 }
 
-// Global exclusive rank of each of this thread's kScanItems columns among
-// the set flags (valid where flag[i] is true). Every thread of the block
-// must call it.
+// Exclusive rank, within its element, of each of this thread's kScanItems
+// columns among the set flags (valid where flag[i] is true). ``flags`` is
+// the element's own row. Every thread of the block must call it.
 __device__ __forceinline__ void tile_ranks(const uint8_t* __restrict__ flags,
                                            int n, int skip_first,
                                            int tile_offset,

@@ -39,11 +39,17 @@ namespace {
 constexpr int kMaxChannels = 8;
 constexpr int kRunThreads = 256;
 
+// grid (tiles, batch); element b = blockIdx.y.
 __global__ void masked_compact_scatter(const uint32_t* __restrict__ values,
                                        const uint8_t* __restrict__ mask,
                                        const int* __restrict__ offsets,
                                        uint32_t* __restrict__ out, int c, int n,
                                        int capacity) {
+  const size_t b = blockIdx.y;
+  values += b * c * n;
+  mask += b * n;
+  offsets += b * (gridDim.x + 1);
+  out += b * c * capacity;
   bool flag[kScanItems];
   int rank[kScanItems];
   tile_ranks(mask, n, 0, offsets[blockIdx.x], flag, rank);
@@ -58,10 +64,15 @@ __global__ void masked_compact_scatter(const uint32_t* __restrict__ values,
   }
 }
 
-// starts[s] = first column of run s (run 0 starts at column 0).
+// starts[b * n + s] = first column of element b's run s (run 0 starts at
+// column 0); grid (tiles, batch).
 __global__ void run_starts_scatter(const uint8_t* __restrict__ run_start,
                                    const int* __restrict__ offsets, int n,
                                    int* __restrict__ starts) {
+  const size_t b = blockIdx.y;
+  run_start += b * n;
+  offsets += b * (gridDim.x + 1);
+  starts += b * n;
   bool flag[kScanItems];
   int rank[kScanItems];
   tile_ranks(run_start, n, 1, offsets[blockIdx.x], flag, rank);
@@ -73,12 +84,18 @@ __global__ void run_starts_scatter(const uint8_t* __restrict__ run_start,
   }
 }
 
+// grid (ceil(n / kRunThreads), batch); num_flags[b * flag_stride] is
+// element b's count of run-start flags.
 __global__ void run_sums(const float* __restrict__ values,
                          const int* __restrict__ starts,
-                         const int* __restrict__ num_flags,
+                         const int* __restrict__ num_flags, int flag_stride,
                          float* __restrict__ out, int c, int n) {
+  const size_t b = blockIdx.y;
+  values += b * c * n;
+  starts += b * n;
+  out += b * c * n;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  const int runs = *num_flags + 1;
+  const int runs = num_flags[b * flag_stride] + 1;
   if (s >= runs) return;
   const int begin = starts[s];
   const int end = s + 1 < runs ? starts[s + 1] : n;
@@ -100,44 +117,50 @@ __global__ void run_sums(const float* __restrict__ values,
 }  // namespace
 }  // namespace apc
 
-// scratch: int32[2 * tiles + 1] (tile counts, then tile offsets + total).
+// values [batch, c, n], mask [batch, n], out [batch, c, capacity];
+// scratch: int32[batch * (2 * tiles + 1)] (tile counts, then tile offsets
+// + total per element).
 extern "C" int apc_masked_compact(const void* values, const void* mask,
-                                  void* out, void* scratch, int c, int n,
-                                  int capacity, void* stream) {
+                                  void* out, void* scratch, int batch, int c,
+                                  int n, int capacity, void* stream) {
   using namespace apc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles = scan_tiles(n);
-  if (tiles > 0 && capacity > 0) {
+  if (batch > 0 && tiles > 0 && capacity > 0) {
     int* counts = static_cast<int*>(scratch);
-    int* offsets = counts + tiles;
+    int* offsets = counts + (size_t)batch * tiles;
     const uint8_t* m = static_cast<const uint8_t*>(mask);
-    tile_count_kernel<<<tiles, kScanThreads, 0, s>>>(m, n, 0, counts);
-    tile_scan_kernel<<<1, kScanBlock, 0, s>>>(counts, tiles, offsets);
-    masked_compact_scatter<<<tiles, kScanThreads, 0, s>>>(
+    const dim3 grid(tiles, batch);
+    tile_count_kernel<<<grid, kScanThreads, 0, s>>>(m, n, 0, counts);
+    tile_scan_kernel<<<batch, kScanBlock, 0, s>>>(counts, tiles, offsets);
+    masked_compact_scatter<<<grid, kScanThreads, 0, s>>>(
         static_cast<const uint32_t*>(values), m, offsets,
         static_cast<uint32_t*>(out), c, n, capacity);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// scratch: int32[2 * tiles + 1 + n] (tile counts, tile offsets + total,
-// run starts).
+// values and out [batch, c, n], run_start [batch, n]; scratch:
+// int32[batch * (2 * tiles + 1 + n)] (tile counts, tile offsets + total,
+// run starts, per element).
 extern "C" int apc_segmented_sums(const void* values, const void* run_start,
-                                  void* out, void* scratch, int c, int n,
-                                  void* stream) {
+                                  void* out, void* scratch, int batch, int c,
+                                  int n, void* stream) {
   using namespace apc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles = scan_tiles(n);
-  if (tiles > 0) {
+  if (batch > 0 && tiles > 0) {
     int* counts = static_cast<int*>(scratch);
-    int* offsets = counts + tiles;
-    int* starts = offsets + tiles + 1;
+    int* offsets = counts + (size_t)batch * tiles;
+    int* starts = offsets + (size_t)batch * (tiles + 1);
     const uint8_t* f = static_cast<const uint8_t*>(run_start);
-    tile_count_kernel<<<tiles, kScanThreads, 0, s>>>(f, n, 1, counts);
-    tile_scan_kernel<<<1, kScanBlock, 0, s>>>(counts, tiles, offsets);
-    run_starts_scatter<<<tiles, kScanThreads, 0, s>>>(f, offsets, n, starts);
-    run_sums<<<(n + kRunThreads - 1) / kRunThreads, kRunThreads, 0, s>>>(
-        static_cast<const float*>(values), starts, offsets + tiles,
+    const dim3 grid(tiles, batch);
+    tile_count_kernel<<<grid, kScanThreads, 0, s>>>(f, n, 1, counts);
+    tile_scan_kernel<<<batch, kScanBlock, 0, s>>>(counts, tiles, offsets);
+    run_starts_scatter<<<grid, kScanThreads, 0, s>>>(f, offsets, n, starts);
+    const dim3 run_grid((n + kRunThreads - 1) / kRunThreads, batch);
+    run_sums<<<run_grid, kRunThreads, 0, s>>>(
+        static_cast<const float*>(values), starts, offsets + tiles, tiles + 1,
         static_cast<float*>(out), c, n);
   }
   return static_cast<int>(cudaGetLastError());

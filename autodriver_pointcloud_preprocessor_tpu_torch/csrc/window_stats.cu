@@ -13,6 +13,11 @@
 //     Sxy, Sxz, Syz] of the in-radius valid candidates, about the block
 //     origin (the mean of the block's 128 sanitized query rows, summed as
 //     a fixed-order tree that the plain PyTorch version repeats).
+// Batch axis: rows are [batch, n] and r2 is [batch] (one squared radius per
+// scan, as the reference's per-scan r2 row, pallas_window.py:461-467); the
+// grid is (n / 128, batch) and each element's window stops at its own row
+// ends, so no window reaches into the neighbouring scan. This is the
+// reference's custom_vmap rule (_make_window_stats) as a grid dimension.
 // Windows: wb >= 1 is wb blocks each side; wb == 0 is the own block plus
 // the next one (direction 0) or the previous one (direction 1).
 // Out-of-range rows, invalid rows and non-finite rows are excluded as
@@ -80,6 +85,14 @@ window_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
   uint8_t* sv = reinterpret_cast<uint8_t*>(sz + span);
   const int t = threadIdx.x;
   const int start = blockIdx.x * kB - qoff;
+  const size_t elem = blockIdx.y;
+  x += elem * n;
+  y += elem * n;
+  z += elem * n;
+  valid += elem * n;
+  mean_out += elem * n;
+  cnt_out += elem * n;
+  mom_out += elem * 10 * n;
 
   for (int r = t; r < span; r += kB) {
     const int g = start + r;
@@ -126,7 +139,7 @@ window_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
   __syncthreads();
 
   const float qx = sx[qoff + t], qy = sy[qoff + t], qz = sz[qoff + t];
-  const float r2 = *r2_ptr;
+  const float r2 = r2_ptr[elem];
   const bool csel = kmode == 1;
   // csel selects its threshold among the own block's rows only
   const int sel_lo = csel ? qoff : 0;
@@ -236,23 +249,24 @@ window_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
 template <int MAXK>
 cudaError_t launch(const float* x, const float* y, const float* z,
                    const uint8_t* valid, const float* r2, float* mean,
-                   float* cnt, float* mom, int n, int k, int wb, int direction,
-                   int kmode, int moments, cudaStream_t stream) {
+                   float* cnt, float* mom, int batch, int n, int k, int wb,
+                   int direction, int kmode, int moments, cudaStream_t stream) {
   const int span = wb > 0 ? (2 * wb + 1) * kB : 2 * kB;
   const size_t smem = (size_t)span * (3 * sizeof(float) + 1);
-  window_stats_kernel<MAXK><<<n / kB, kB, smem, stream>>>(
+  window_stats_kernel<MAXK><<<dim3(n / kB, batch), kB, smem, stream>>>(
       x, y, z, valid, r2, mean, cnt, mom, n, k, wb, direction, kmode, moments);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// n % 128 == 0, 1 <= k <= 64, 0 <= wb <= 7; r2 points to one float on the
-// device (the squared moment radius).
+// Rows x, y, z, valid, mean, cnt [batch, n], mom [batch, 10, n]; r2
+// float32[batch] on the device (each scan's squared moment radius);
+// n % 128 == 0, 1 <= k <= 64, 0 <= wb <= 7.
 extern "C" int apc_window_stats(const void* x, const void* y, const void* z,
                                 const void* valid, const void* r2, void* mean,
-                                void* cnt, void* mom, int n, int k, int wb,
-                                int direction, int kmode, int moments,
+                                void* cnt, void* mom, int batch, int n, int k,
+                                int wb, int direction, int kmode, int moments,
                                 void* stream) {
   const float* fx = static_cast<const float*>(x);
   const float* fy = static_cast<const float*>(y);
@@ -263,16 +277,16 @@ extern "C" int apc_window_stats(const void* x, const void* y, const void* z,
   float* fc = static_cast<float*>(cnt);
   float* fo = static_cast<float*>(mom);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n < kB) return static_cast<int>(cudaGetLastError());
+  if (n < kB || batch < 1) return static_cast<int>(cudaGetLastError());
   cudaError_t err;
   if (k <= 8) {
-    err = launch<8>(fx, fy, fz, v, fr2, fm, fc, fo, n, k, wb, direction, kmode, moments, s);
+    err = launch<8>(fx, fy, fz, v, fr2, fm, fc, fo, batch, n, k, wb, direction, kmode, moments, s);
   } else if (k <= 16) {
-    err = launch<16>(fx, fy, fz, v, fr2, fm, fc, fo, n, k, wb, direction, kmode, moments, s);
+    err = launch<16>(fx, fy, fz, v, fr2, fm, fc, fo, batch, n, k, wb, direction, kmode, moments, s);
   } else if (k <= 32) {
-    err = launch<32>(fx, fy, fz, v, fr2, fm, fc, fo, n, k, wb, direction, kmode, moments, s);
+    err = launch<32>(fx, fy, fz, v, fr2, fm, fc, fo, batch, n, k, wb, direction, kmode, moments, s);
   } else {
-    err = launch<64>(fx, fy, fz, v, fr2, fm, fc, fo, n, k, wb, direction, kmode, moments, s);
+    err = launch<64>(fx, fy, fz, v, fr2, fm, fc, fo, batch, n, k, wb, direction, kmode, moments, s);
   }
   return static_cast<int>(err);
 }

@@ -1,5 +1,7 @@
-"""Pipeline models: the preprocessing pipeline and its named presets."""
+"""Pipeline models: the preprocessing pipeline, its named presets, and the
+``Preprocessor`` engine."""
 from .pipeline import (
+    STAGE_TIMING_KEYS,
     PipelineParams,
     PipelineSettings,
     build_pipeline,
@@ -8,3 +10,4 @@ from .pipeline import (
     settings_from_config,
     stage_functions,
 )
+from .preprocessor import Preprocessor

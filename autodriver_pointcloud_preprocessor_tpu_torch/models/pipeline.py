@@ -4,15 +4,21 @@ Port of ``autodriver_pointcloud_preprocessor_tpu/models/pipeline.py``.
 The configuration surface is the reference's, unchanged:
 ``PipelineSettings`` (static switches, validated the same way),
 ``settings_from_config`` and the named presets (``models/presets.py``).
-``PipelineParams`` holds tensors on an explicit device.
+``PipelineParams`` holds tensors on one device (``cuda:0`` unless given).
 
 The port runs the stages of the production profile
-(``PRODUCTION_128K_CONFIG``): duplicates fused into the voxel sort,
-non-finite, crop, RANSAC ground on the raw cloud, pre-voxel stream
-compaction (K1), the curve-ordered voxel stage (K2), and the presorted
-fused two-pass Hilbert-window neighbourhood (K3) with the global
-mean+std outlier threshold. Settings that need a stage the port does not
-have yet raise ``NotImplementedError`` naming its ROADMAP item.
+(``PRODUCTION_128K_CONFIG``): duplicates fused into the voxel sort (or as
+their own stage in profile mode), non-finite, the SE(3) transforms, crop,
+RANSAC ground on the raw cloud, pre-voxel stream compaction (K1), the
+curve-ordered voxel stage (K2), and the presorted fused two-pass
+Hilbert-window neighbourhood (K3) with the mean+std outlier threshold of
+each scan. Settings that need a stage the port does not have yet raise
+``NotImplementedError`` naming its ROADMAP item.
+
+Every stage takes one scan or a batch of scans (a leading axis on every
+tensor of the buffer, ``core.stack_buffers``), so the same runner serves
+``Preprocessor.process_buffer`` and the batched ``process_batch``: at
+B scans each kernel launches as often as for one.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..core.scan import ScanBuffer
+from ..core.scan import ScanBuffer, resolve_device
 from .. import ops
 from ..ops.window import fused_neighborhood_stats_reordered
 
@@ -257,8 +263,12 @@ class PipelineParams:
         sampling_ratio=0.5,
         every_k_points=5,
         ground_plane=(0.0, 1.0, 0.0, 0.0),
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ) -> "PipelineParams":
+        """Parameters on ``device`` (default ``cuda:0``; raises without a
+        card unless a device is given)."""
+        device = resolve_device(device)
+
         def f32(v):
             return torch.as_tensor(np.asarray(v, np.float32), device=device)
 
@@ -289,10 +299,27 @@ def _not_ported(what: str, item: str):
     )
 
 
+#: Stage names with the reference's timing keys (pointcloud_preprocessor.py
+#: stage timers; see core/timing.py), as the reference's pipeline has them.
+STAGE_TIMING_KEYS = {
+    "remove_duplicates": "remove_duplicate_points",
+    # fused outlier+normal sweep reports under the outlier key
+    "neighborhood": "remove_statistical_outliers",
+    "non_finite": "remove_nan_points",
+    "transform": "transform",
+    "crop": "crop",
+    "pre_compact": "pre_voxel_compaction",
+    "voxel": "voxel_downsampling",
+    "shrink": "post_downsample_shrink",
+    "outliers": "remove_statistical_outliers",
+    "radius_outliers": "remove_radius_outliers",
+    "normals": "normal_estimation",
+    "ground": "ground_segmentation",
+}
+
+
 def _check_supported(settings: "PipelineSettings") -> None:
     """Raise for settings whose stages the port does not have yet."""
-    if settings.apply_offset_lidar or settings.apply_tf or settings.apply_offset_robot:
-        raise _not_ported("the transform stage", "item 2 (ops/transform.py)")
     if settings.voxel_downsample and settings.downsample_method != "voxel":
         raise _not_ported(f"downsample_method={settings.downsample_method!r}", "item 8")
     if settings.remove_ground:
@@ -330,14 +357,20 @@ def _check_supported(settings: "PipelineSettings") -> None:
         raise _not_ported("the post-downsample shrink (ops.subsample_to)", "item 4")
 
 
-def stage_functions(settings: PipelineSettings):
+def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
     """Ordered list of ``(stage_name, fn(buf, params, generator, uniforms)
-    -> (buf, aux))``; ``aux`` is the ground plane or None."""
+    -> (buf, aux))``; ``aux`` is the ground plane (float32[..., 4]) or None.
+
+    ``separate_stages=True`` (profile mode) keeps duplicate removal out of
+    the voxel sort, so that it runs, and is timed, as its own stage.
+    """
     _check_supported(settings)
     stages = []
 
     # duplicate removal fuses into the voxel sort when both are enabled
-    fuse_dedup = settings.remove_duplicates and settings.voxel_downsample
+    fuse_dedup = (
+        not separate_stages and settings.remove_duplicates and settings.voxel_downsample
+    )
     if settings.remove_duplicates and not fuse_dedup:
         stages.append(
             ("remove_duplicates", lambda b, p, g, u: (ops.remove_duplicates(b), None))
@@ -348,6 +381,18 @@ def stage_functions(settings: PipelineSettings):
         stages.append(
             ("non_finite", lambda b, p, g, u: (ops.mask_non_finite(b, rn, ri), None))
         )
+
+    if settings.apply_offset_lidar or settings.apply_tf:
+        def xform(b, p, g, u):
+            if settings.apply_offset_lidar:
+                b = ops.se3_transform(b, p.offset_matrix)
+            if settings.apply_tf:
+                b = ops.se3_transform(b, p.tf_matrix)
+                if settings.apply_offset_robot:
+                    b = ops.se3_transform(b, p.offset_matrix)
+            return b, None
+
+        stages.append(("transform", xform))
 
     if settings.crop_to_roi:
         stages.append((
@@ -401,11 +446,12 @@ def stage_functions(settings: PipelineSettings):
                     shrink_to=cap if cap < b.capacity else 0,
                 )
             )
-            # global outlier threshold (mean + std_ratio * std of live means)
-            n_live = torch.clamp(valid.sum(), min=1)
+            # outlier threshold of each scan (mean + std_ratio * std of its
+            # live means)
+            n_live = torch.clamp(valid.sum(-1, keepdim=True), min=1)
             zero = torch.zeros((), dtype=mean_d.dtype, device=mean_d.device)
-            mu = torch.where(valid, mean_d, zero).sum() / n_live
-            var = torch.where(valid, (mean_d - mu) ** 2, zero).sum() / n_live
+            mu = torch.where(valid, mean_d, zero).sum(-1, keepdim=True) / n_live
+            var = torch.where(valid, (mean_d - mu) ** 2, zero).sum(-1, keepdim=True) / n_live
             keep = valid & (mean_d <= mu + p.std_ratio * torch.sqrt(var))
             attrs["normals"] = normals
             return ScanBuffer(positions=pos, mask=keep, attributes=attrs), None
@@ -416,15 +462,20 @@ def stage_functions(settings: PipelineSettings):
 
 def pipeline_runner(settings: PipelineSettings):
     """The pipeline body: ``fn(buf, params, generator, ground_uniforms=None)
-    -> (buf, plane)``; plane is [nan]*4 when ground removal is off.
-    ``ground_uniforms`` float32[num_iterations, ransac_n] replaces the
-    RANSAC draws from ``generator``."""
+    -> (buf, plane)``.
+
+    ``buf`` is one scan or a batch (``core.stack_buffers``); ``plane`` is
+    float32[..., 4] of the batch shape, NaN when ground removal is off.
+    ``ground_uniforms`` float32[..., num_iterations, ransac_n] (one set per
+    scan) replaces the RANSAC draws from ``generator``."""
     stages = stage_functions(settings)
 
     def run(buf: ScanBuffer, params: PipelineParams,
             generator: Optional[torch.Generator],
             ground_uniforms: Optional[torch.Tensor] = None):
-        plane = torch.full((4,), float("nan"), dtype=torch.float32, device=buf.device)
+        plane = torch.full(
+            buf.batch_shape + (4,), float("nan"), dtype=torch.float32, device=buf.device
+        )
         for _, fn in stages:
             buf, aux = fn(buf, params, generator, ground_uniforms)
             if aux is not None:
@@ -568,9 +619,10 @@ def settings_from_config(cfg: Dict[str, object]) -> PipelineSettings:
 def params_from_config(
     cfg: Dict[str, object],
     tf_matrix: Optional[np.ndarray] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> PipelineParams:
-    """Map reference-named parameters -> PipelineParams on ``device``."""
+    """Map reference-named parameters -> PipelineParams on ``device``
+    (default ``cuda:0``; raises without a card unless a device is given)."""
     offset = np.asarray(
         cfg.get("offset_pointcloud_matrix", np.eye(4).ravel().tolist()),
         dtype=np.float32,

@@ -1,0 +1,227 @@
+"""Standalone preprocessing engine (non-ROS API).
+
+Port of ``autodriver_pointcloud_preprocessor_tpu/models/preprocessor.py``.
+``Preprocessor`` owns the config, the pipeline for its settings, the
+RANSAC generator and the per-stage timing dict; the runtime node and the
+streaming engine wrap it.
+
+Batches: ``process_batch`` runs a list of same-capacity buffers either as
+one batched run (every stage over a leading scan axis, each kernel
+launched as often as for one scan: the reference's ``vmap``) or as a loop
+of single-scan runs on one stream (the reference's ``lax.map``).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.scan import (
+    ScanBuffer,
+    from_soa,
+    resolve_device,
+    stack_buffers,
+    to_soa,
+    unstack_buffer,
+    valid_count,
+)
+from ..core.timing import StageTimer, get_current_time, get_time_difference
+from .pipeline import (
+    STAGE_TIMING_KEYS,
+    PipelineParams,
+    PipelineSettings,
+    build_pipeline,
+    params_from_config,
+    settings_from_config,
+    stage_functions,
+)
+
+__all__ = ["Preprocessor"]
+
+
+def _plane_metadata(plane: torch.Tensor) -> Optional[np.ndarray]:
+    p = plane.cpu().numpy()
+    return None if np.isnan(p).any() else p
+
+
+class Preprocessor:
+    """Configurable scan preprocessing engine.
+
+    Args:
+        config: flat dict using the reference's dotted parameter names
+            (missing keys -> reference defaults).
+        profile: when True, stages run one at a time with a device
+            synchronisation after each, so ``processing_times`` carries
+            real per-stage wall times under the reference's keys. When
+            False only ``preprocessing_time`` is recorded (the production
+            mode).
+        seed: seed of the engine's RANSAC generator.
+        device: where the engine's tensors live (default ``cuda:0``;
+            raises without a card unless a device is given).
+    """
+
+    def __init__(
+        self,
+        config: Optional[Dict[str, object]] = None,
+        profile: bool = False,
+        seed: int = 0,
+        device: torch.device | str | None = None,
+    ):
+        self.config: Dict[str, object] = dict(config or {})
+        self.profile = profile
+        self.device = resolve_device(device)
+        self.processing_times: Dict[str, float] = {}
+        self._timer = StageTimer(self.processing_times)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._tf_matrix: Optional[np.ndarray] = None
+        self._rebuild()
+
+    # -- configuration --------------------------------------------------------
+
+    def _rebuild(self) -> None:
+        cfg = dict(self.config)
+        cfg["_has_tf"] = self._tf_matrix is not None
+        self.settings: PipelineSettings = settings_from_config(cfg)
+        # raises here, not at the next scan, for a stage the port lacks
+        self._run = build_pipeline(self.settings)
+        self.params: PipelineParams = params_from_config(cfg, self._tf_matrix, self.device)
+
+    def update_config(self, delta: Dict[str, object]) -> None:
+        """Apply a config change. A delta that fails validation, or asks
+        for a stage the port does not have, is ROLLED BACK: the previous
+        config stays live and the error propagates."""
+        old = dict(self.config)
+        self.config.update(delta)
+        try:
+            self._rebuild()
+        except Exception:
+            self.config = old
+            self._rebuild()
+            raise
+
+    def set_tf_matrix(self, matrix: Optional[np.ndarray]) -> None:
+        """Install (or clear) the sensor->robot homogeneous transform."""
+        self._tf_matrix = None if matrix is None else np.asarray(matrix, np.float32)
+        self._rebuild()
+
+    # -- processing -----------------------------------------------------------
+
+    def process_soa(
+        self,
+        soa: Dict[str, np.ndarray],
+        metadata: Optional[dict] = None,
+        capacity: Optional[int] = None,
+    ) -> Tuple[Dict[str, np.ndarray], dict]:
+        """Host SoA in -> processed host SoA out.
+
+        Records the reference's timing keys: ``tensor_transfer`` (H2D +
+        padding), per-stage keys in profile mode, ``preprocessing_time``
+        and ``device_to_host``.
+        """
+        start = get_current_time(monotonic=True)
+        buf, metadata = from_soa(soa, capacity=capacity, metadata=metadata, device=self.device)
+        self.processing_times["tensor_transfer"] = get_time_difference(
+            start, get_current_time(monotonic=True)
+        )
+
+        buf, plane = self.process_buffer(buf)
+
+        start = get_current_time(monotonic=True)
+        out = to_soa(buf, metadata)
+        self.processing_times["device_to_host"] = get_time_difference(
+            start, get_current_time(monotonic=True)
+        )
+        if self.settings.estimate_normals:
+            metadata["has_normals"] = True
+        metadata["ground_plane_estimate"] = _plane_metadata(plane)
+        return out, metadata
+
+    def process_soa_async(self, soa, metadata=None, capacity=None):
+        """Enqueue a scan and return a resolver: calling it copies the
+        result to the host and yields ``(out_soa, metadata)``."""
+        buf, metadata = from_soa(soa, capacity=capacity, metadata=metadata, device=self.device)
+        buf, plane = self.process_buffer(buf)
+
+        def resolve():
+            out = to_soa(buf, metadata)
+            if self.settings.estimate_normals:
+                metadata["has_normals"] = True
+            metadata["ground_plane_estimate"] = _plane_metadata(plane)
+            return out, metadata
+
+        return resolve
+
+    def process_buffer(
+        self, buf: ScanBuffer, ground_uniforms: Optional[torch.Tensor] = None
+    ) -> Tuple[ScanBuffer, torch.Tensor]:
+        """Device buffer in -> device buffer and plane float32[4] out.
+
+        ``ground_uniforms`` float32[num_iterations, ransac_n] replaces the
+        generator's RANSAC draws (the tests feed the reference's)."""
+        start = get_current_time(monotonic=True)
+        if self.profile:
+            buf, plane = self._run_profiled(buf, ground_uniforms)
+        else:
+            buf, plane = self._run(buf, self.params, self.generator, ground_uniforms)
+        self.processing_times["preprocessing_time"] = get_time_difference(
+            start, get_current_time(monotonic=True)
+        )
+        return buf, plane
+
+    def process_batch(
+        self,
+        bufs: Sequence[ScanBuffer],
+        sequential: bool = False,
+        ground_uniforms: Optional[torch.Tensor] = None,
+    ) -> Tuple[List[ScanBuffer], torch.Tensor]:
+        """Process a list of same-capacity single-scan buffers.
+
+        ``sequential=False``: one batched run; every stage covers the B
+        scans at once, so each kernel launches as often as for one scan.
+        ``sequential=True``: single-scan runs one after another on the
+        current stream. ``ground_uniforms`` float32[B, num_iterations,
+        ransac_n] gives each scan its RANSAC draws.
+        Returns (list of ScanBuffers, planes float32[B, 4]).
+        """
+        if not bufs:
+            return [], torch.zeros((0, 4), dtype=torch.float32, device=self.device)
+        start = get_current_time(monotonic=True)
+        if sequential:
+            runs = [
+                self._run(b, self.params, self.generator,
+                          None if ground_uniforms is None else ground_uniforms[i])
+                for i, b in enumerate(bufs)
+            ]
+            outs, planes = [r[0] for r in runs], torch.stack([r[1] for r in runs])
+        else:
+            out, planes = self._run(
+                stack_buffers(bufs), self.params, self.generator, ground_uniforms
+            )
+            outs = unstack_buffer(out)
+        self.processing_times["preprocessing_time"] = get_time_difference(
+            start, get_current_time(monotonic=True)
+        )
+        return outs, planes
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _run_profiled(self, buf: ScanBuffer, ground_uniforms: Optional[torch.Tensor]):
+        plane = torch.full(
+            buf.batch_shape + (4,), float("nan"), dtype=torch.float32, device=buf.device
+        )
+        self._sync()
+        for name, fn in stage_functions(self.settings, separate_stages=True):
+            with self._timer.stage(STAGE_TIMING_KEYS[name]):
+                buf, aux = fn(buf, self.params, self.generator, ground_uniforms)
+                self._sync()
+            if aux is not None:
+                plane = aux
+        return buf, plane
+
+    # -- introspection --------------------------------------------------------
+
+    def count(self, buf: ScanBuffer) -> int:
+        return int(valid_count(buf))

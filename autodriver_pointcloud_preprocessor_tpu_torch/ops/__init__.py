@@ -1,7 +1,8 @@
 """Filter/op library: ``(ScanBuffer, params) -> ScanBuffer`` functions on tensors.
 
 Ports of the JAX package's ops that the production pipeline runs. Every
-filter is mask-only; compaction happens in explicit stages. The kernel
+filter is mask-only; compaction happens in explicit stages. Every op takes
+a single scan or a batch of scans (a leading axis on every tensor). The kernel
 modules (``segmean``, ``window_stats``) launch hand-written CUDA kernels
 for CUDA tensors and run their plain PyTorch versions for CPU tensors.
 """
@@ -12,6 +13,7 @@ from .finite import mask_non_finite
 from .ground import remove_ground, segment_plane
 from .linalg import smallest_eigenvector_sym3x3, smallest_eigvec_entries
 from .segmean import masked_compact, segmented_sums
+from .transform import rotate_rows, se3_transform, transform_points
 from .voxel import voxel_downsample
 from .window import (
     fused_neighborhood_stats_reordered,

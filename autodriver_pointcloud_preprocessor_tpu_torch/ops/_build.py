@@ -2,7 +2,8 @@
 
 The kernels have a plain C interface and are compiled by ``nvcc`` into
 one shared library, loaded with ``ctypes``; no PyTorch headers are
-involved, so a cold build takes seconds. The build happens at the first
+involved, so a cold build takes seconds. Each source compiles in its own
+``nvcc`` process, all started together, and one more links them. The build happens at the first
 launch of any kernel, never at import, into ``build/torch_kernels/`` at
 the repository root. The library's file name carries a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
@@ -36,7 +37,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     # no contraction of a*b+c into FMA: the kernels then round exactly as
     # the plain PyTorch versions (separate elementwise ops) do
     "-fmad=false",
@@ -54,14 +55,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C entry points: name -> argtypes (every one returns cudaError_t as int)
 _SIGNATURES = {
-    # values, mask, out, scratch, c, n, capacity, stream
-    "apc_masked_compact": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # values, run_start, out, scratch, c, n, stream
-    "apc_segmented_sums": (_P, _P, _P, _P, _I, _I, _P),
-    # x, y, z, valid, r2, mean, cnt, mom, n, k, wb, direction, kmode,
-    # moments, stream
+    # values, mask, out, scratch, batch, c, n, capacity, stream
+    "apc_masked_compact": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # values, run_start, out, scratch, batch, c, n, stream
+    "apc_segmented_sums": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # x, y, z, valid, r2, mean, cnt, mom, batch, n, k, wb, direction,
+    # kmode, moments, stream
     "apc_window_stats": (_P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _P),
+                         _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -84,6 +85,11 @@ def _nvcc() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
+def _check_nvcc(cmd, returncode: int, out: str, err: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}): {' '.join(cmd)}\n{out}\n{err}")
+
+
 def load_library() -> ctypes.CDLL:
     """Build (when needed) and load the kernel library; raises on failure."""
     global _lib, _build_seconds
@@ -100,17 +106,24 @@ def load_library() -> ctypes.CDLL:
     t0 = time.perf_counter()
     if not target.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, target)  # atomic: concurrent builds are safe
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
+            compiles = [
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(sources, objs)
+            ]
+            procs = [
+                subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for cmd in compiles
+            ]
+            outputs = [proc.communicate() for proc in procs]  # waits for all
+            for cmd, proc, (out, err) in zip(compiles, procs, outputs):
+                _check_nvcc(cmd, proc.returncode, out, err)
+            lib_tmp = str(Path(tmp) / target.name)
+            link = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            _check_nvcc(link, proc.returncode, proc.stdout, proc.stderr)
+            os.replace(lib_tmp, target)  # atomic: concurrent builds are safe
     lib = ctypes.CDLL(str(target))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -2,8 +2,8 @@
 
 Port of ``autodriver_pointcloud_preprocessor_tpu/ops/compact.py``
 (``compact_to``, ``shrink_front``, ``stream_compact_to``). The order of
-surviving points is kept. ``subsample_to`` is not ported yet (ROADMAP
-item 4).
+surviving points is kept. Buffers may carry a batch axis; each scan
+compacts on its own. ``subsample_to`` is not ported yet (ROADMAP item 4).
 """
 from __future__ import annotations
 
@@ -12,14 +12,25 @@ import torch
 from ..core.scan import ScanBuffer
 from .segmean import masked_compact
 
-__all__ = ["compact_to", "compaction_order", "shrink_front", "stream_compact_to"]
+__all__ = [
+    "compact_to", "compaction_order", "gather_columns", "shrink_front", "stream_compact_to",
+]
 
 _MAX_ROWS = 8  # rows per K1 launch
 
 
 def compaction_order(mask: torch.Tensor) -> torch.Tensor:
-    """Stable permutation putting True rows first."""
-    return torch.argsort((~mask).to(torch.uint8), stable=True)
+    """Stable permutation (along the last axis) putting True rows first."""
+    return torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)
+
+
+def gather_columns(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx]`` per scan: ``idx`` [..., M] (one row of column indices
+    per scan, the mask's leading shape) applied to x [..., N] or
+    [..., C, N]."""
+    if x.dim() > idx.dim():
+        idx = idx.unsqueeze(-2).expand(x.shape[:-1] + idx.shape[-1:])
+    return torch.gather(x, -1, idx)
 
 
 def compact_to(buf: ScanBuffer, capacity: int) -> ScanBuffer:
@@ -32,12 +43,12 @@ def compact_to(buf: ScanBuffer, capacity: int) -> ScanBuffer:
         raise ValueError(
             f"compact_to grows capacity {buf.capacity} -> {capacity}; use pad_to_capacity"
         )
-    idx = compaction_order(buf.mask)[:capacity]
-    n = buf.mask.sum()
+    idx = compaction_order(buf.mask)[..., :capacity]
+    n = buf.mask.sum(-1, keepdim=True)
     return ScanBuffer(
-        positions=buf.positions[:, idx],
+        positions=gather_columns(buf.positions, idx),
         mask=torch.arange(capacity, device=buf.device) < n,
-        attributes={k: v[..., idx] for k, v in buf.attributes.items()},
+        attributes={k: gather_columns(v, idx) for k, v in buf.attributes.items()},
     )
 
 
@@ -48,7 +59,7 @@ def shrink_front(buf: ScanBuffer, capacity: int) -> ScanBuffer:
     if capacity > buf.capacity:
         raise ValueError(f"shrink_front grows capacity {buf.capacity} -> {capacity}")
     return ScanBuffer(
-        positions=buf.positions[:, :capacity],
+        positions=buf.positions[..., :capacity],
         mask=buf.mask[:capacity],
         attributes={k: v[..., :capacity] for k, v in buf.attributes.items()},
     )
@@ -58,37 +69,39 @@ def stream_compact_to(buf: ScanBuffer, capacity: int) -> ScanBuffer:
     """Compact live points to the front of a smaller buffer with K1.
 
     Every row (positions and each attribute row, float32 or int32) rides
-    the kernel as 32-bit words, at most 8 rows per launch, so values come
-    through bit for bit. Live points with rank >= ``capacity`` are dropped
-    (capped-output semantics); dead output slots hold zeros.
+    the kernel as 32-bit words, at most 8 rows per launch (a batch shares
+    its launches), so values come through bit for bit. Live points with
+    rank >= ``capacity`` are dropped (capped-output semantics); dead output
+    slots hold zeros.
     """
     if capacity > buf.capacity:
         raise ValueError(
             f"stream_compact_to grows capacity {buf.capacity} -> {capacity}"
         )
     n = buf.capacity
+    lead = buf.batch_shape
     rows = [buf.positions.view(torch.int32)]
     specs = []  # (name, shape, dtype, first row, row count)
     start = 3
     for name, v in sorted(buf.attributes.items()):
         if v.dtype not in (torch.float32, torch.int32):
             raise ValueError(f"stream_compact_to: attribute {name} has dtype {v.dtype}")
-        r2 = v.reshape(-1, n).view(torch.int32)
-        specs.append((name, v.shape, v.dtype, start, r2.shape[0]))
+        r2 = v.reshape(lead + (-1, n)).view(torch.int32)
+        specs.append((name, v.shape, v.dtype, start, r2.shape[-2]))
         rows.append(r2)
-        start += r2.shape[0]
-    allrows = torch.cat(rows)
+        start += r2.shape[-2]
+    allrows = torch.cat(rows, dim=-2)
     out = torch.cat([
-        masked_compact(allrows[s : s + _MAX_ROWS], buf.mask, capacity)
-        for s in range(0, allrows.shape[0], _MAX_ROWS)
-    ])
+        masked_compact(allrows[..., s : s + _MAX_ROWS, :].contiguous(), buf.mask, capacity)
+        for s in range(0, allrows.shape[-2], _MAX_ROWS)
+    ], dim=-2)
     attrs = {
-        name: out[s : s + r].view(dtype).reshape(shape[:-1] + (capacity,))
+        name: out[..., s : s + r, :].view(dtype).reshape(shape[:-1] + (capacity,))
         for name, shape, dtype, s, r in specs
     }
-    count = buf.mask.sum()
+    count = buf.mask.sum(-1, keepdim=True)
     return ScanBuffer(
-        positions=out[:3].view(torch.float32),
+        positions=out[..., :3, :].view(torch.float32),
         mask=torch.arange(capacity, device=buf.device) < count,
         attributes=attrs,
     )

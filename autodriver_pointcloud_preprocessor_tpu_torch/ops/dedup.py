@@ -7,7 +7,8 @@ mask-only.
 The reference sorts on several keys at once (``lax.sort(num_keys=...)``,
 int32 signed and uint32 bit keys); ``torch.sort`` takes one. ``lexsort``
 gets the same order from stable passes over int64 keys that pack two
-32-bit keys each.
+32-bit keys each. Everything works along the last axis, so a leading batch
+axis sorts each scan on its own.
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ def unsigned_key(bits: torch.Tensor) -> torch.Tensor:
 
 
 def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Stable permutation ordering rows by ``keys``, most significant first.
+    """Stable permutation (along the last axis) ordering rows by ``keys``,
+    most significant first.
 
     Each key is int64 in [0, 2^32) (see ``signed_key``/``unsigned_key``).
     Pairs of keys pack into one int64 ``(a - 2^31) * 2^32 + b``, whose
@@ -53,9 +55,10 @@ def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     order = None
     for key in packed:  # least significant first
         if order is None:
-            order = torch.sort(key, stable=True).indices
+            order = torch.sort(key, dim=-1, stable=True).indices
         else:
-            order = order[torch.sort(key[order], stable=True).indices]
+            step = torch.sort(key.gather(-1, order), dim=-1, stable=True).indices
+            order = order.gather(-1, step)
     return order
 
 
@@ -66,20 +69,22 @@ def _coordinate_keys(positions: torch.Tensor, valid: torch.Tensor):
     key."""
     canon = torch.where(positions == 0, torch.zeros_like(positions), positions)
     bits = unsigned_key(canon.view(torch.int32))
-    bits = torch.where(valid[None, :], bits, torch.full_like(bits, _SENTINEL))
-    return bits[0], bits[1], bits[2]
+    bits = torch.where(valid.unsqueeze(-2), bits, torch.full_like(bits, _SENTINEL))
+    return bits[..., 0, :], bits[..., 1, :], bits[..., 2, :]
 
 
 def duplicate_mask(positions: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """bool[capacity]: True for the first occurrence of each live coordinate."""
+    """bool[..., capacity]: True for the first occurrence of each live
+    coordinate (of its scan)."""
     kx, ky, kz = _coordinate_keys(positions, valid)
     order = lexsort((kx, ky, kz))
-    sx, sy, sz = kx[order], ky[order], kz[order]
+    sx, sy, sz = (k.gather(-1, order) for k in (kx, ky, kz))
     first = torch.ones_like(valid)
-    first[1:] = ~((sx[1:] == sx[:-1]) & (sy[1:] == sy[:-1]) & (sz[1:] == sz[:-1]))
-    keep = torch.empty_like(valid)
-    keep[order] = first & valid[order]
-    return keep
+    first[..., 1:] = ~(
+        (sx[..., 1:] == sx[..., :-1]) & (sy[..., 1:] == sy[..., :-1])
+        & (sz[..., 1:] == sz[..., :-1])
+    )
+    return torch.empty_like(valid).scatter_(-1, order, first & valid.gather(-1, order))
 
 
 def remove_duplicates(buf: ScanBuffer) -> ScanBuffer:

@@ -17,7 +17,8 @@ __all__ = ["_normals_from_entries"]
 
 
 def _normals_from_entries(a00, a11, a22, a01, a02, a12, count) -> torch.Tensor:
-    """float32[3, N] unit normals from the six covariance entries."""
+    """float32[..., 3, N] unit normals from the six covariance entries
+    (each [..., N])."""
     nx, ny, nz = smallest_eigvec_entries(a00, a11, a22, a01, a02, a12)
     ax, ay, az = torch.abs(nx), torch.abs(ny), torch.abs(nz)
     lead = torch.where((ax >= ay) & (ax >= az), nx, torch.where(ay >= az, ny, nz))
@@ -29,4 +30,4 @@ def _normals_from_entries(a00, a11, a22, a01, a02, a12, count) -> torch.Tensor:
         torch.where(ok, nx, zero),
         torch.where(ok, ny, zero),
         torch.where(ok, nz, torch.ones_like(nz)),
-    ])
+    ], dim=-2)

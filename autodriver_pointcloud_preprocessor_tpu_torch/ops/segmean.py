@@ -5,7 +5,8 @@ Port of ``autodriver_pointcloud_preprocessor_tpu/ops/pallas_segmean.py``
 in two modes). The CUDA kernels are in ``csrc/segmean.cu``; each function
 here launches its kernel for CUDA tensors and runs its plain PyTorch
 version for CPU tensors. There is no other path: a tensor on another
-device raises.
+device raises. Both take an optional leading batch axis (the reference's
+``custom_vmap`` rule), launched as one kernel for the batch.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from . import _build
 
 __all__ = [
     "masked_compact", "masked_compact_plain",
-    "segmented_sums", "segmented_sums_plain",
+    "run_ids", "segmented_sums", "segmented_sums_plain",
 ]
 
 _MAX_CHANNELS = 8
@@ -25,26 +26,33 @@ _TILE = 1024  # columns per scan tile (csrc/scan.cuh kScanTile)
 
 
 def _check_rows(name: str, values: torch.Tensor, flags: torch.Tensor, dtypes):
-    if values.dim() != 2 or not 1 <= values.shape[0] <= _MAX_CHANNELS:
-        raise ValueError(f"{name}: values must be [C<=8, N], got {tuple(values.shape)}")
+    """Validate [C, N] / [B, C, N] values with [N] / [B, N] flags; returns
+    (batch, C, N)."""
+    if values.dim() not in (2, 3) or not 1 <= values.shape[-2] <= _MAX_CHANNELS:
+        raise ValueError(
+            f"{name}: values must be [C<=8, N] or [B, C<=8, N], got {tuple(values.shape)}"
+        )
     if values.dtype not in dtypes:
         raise ValueError(f"{name}: values dtype {values.dtype} not in {dtypes}")
-    if flags.dtype != torch.bool or flags.shape != values.shape[1:]:
-        raise ValueError(f"{name}: flags must be bool[{values.shape[1]}]")
+    if flags.dtype != torch.bool or flags.shape != values.shape[:-2] + values.shape[-1:]:
+        raise ValueError(f"{name}: flags must be bool{list(values.shape[:-2] + values.shape[-1:])}")
     if values.device != flags.device:
         raise ValueError(f"{name}: values and flags on different devices")
+    return (values.shape[0] if values.dim() == 3 else 1), values.shape[-2], values.shape[-1]
 
 
 def masked_compact_plain(
     values: torch.Tensor, mask: torch.Tensor, capacity: int
 ) -> torch.Tensor:
     """Plain version of K1 (same contract as ``masked_compact``)."""
-    idx = torch.nonzero(mask).squeeze(1)[:capacity]
-    out = torch.zeros(
-        (values.shape[0], capacity), dtype=values.dtype, device=values.device
-    )
-    out[:, : idx.numel()] = values[:, idx]
-    return out
+    c, n = values.shape[-2:]
+    vals = values.reshape(-1, c, n)
+    live = mask.reshape(-1, n)
+    rank = torch.cumsum(live, -1) - 1
+    b, col = torch.nonzero(live & (rank < capacity), as_tuple=True)
+    out = torch.zeros((vals.shape[0], c, capacity), dtype=values.dtype, device=values.device)
+    out[b, :, rank[b, col]] = vals[b, :, col]
+    return out.reshape(values.shape[:-1] + (capacity,))
 
 
 def masked_compact(
@@ -52,20 +60,20 @@ def masked_compact(
 ) -> torch.Tensor:
     """Stable stream compaction of channel rows by a live mask.
 
-    ``out[:, r]`` holds the columns of the r-th live column (in column
-    order) for r < min(live count, capacity); the columns after the last
-    live one are zero. Values are copied bit for bit, so dead columns may
-    hold anything (NaN included) and int32 rows pass unchanged.
+    ``out[..., :, r]`` holds the columns of the r-th live column (in
+    column order) for r < min(live count, capacity); the columns after the
+    last live one are zero. Values are copied bit for bit, so dead columns
+    may hold anything (NaN included) and int32 rows pass unchanged. With a
+    batch axis every scan compacts on its own (one launch for the batch).
 
     Args:
-        values: float32 or int32 [C<=8, N].
-        mask: bool[N] live flags.
+        values: float32 or int32 [C<=8, N] or [B, C<=8, N].
+        mask: bool[N] or [B, N] live flags.
         capacity: output columns (default N); live columns past it drop.
     Returns:
-        [C, capacity] of ``values``' dtype.
+        [..., C, capacity] of ``values``' dtype.
     """
-    _check_rows("masked_compact", values, mask, (torch.float32, torch.int32))
-    n = values.shape[1]
+    batch, c, n = _check_rows("masked_compact", values, mask, (torch.float32, torch.int32))
     capacity = n if capacity is None else int(capacity)
     if not 0 < capacity <= n:
         raise ValueError(f"masked_compact: capacity {capacity} not in (0, {n}]")
@@ -74,42 +82,53 @@ def masked_compact(
     _build.require_cuda("masked_compact", values, mask)
     lib = _build.load_library()
     dev = values.device
-    out = torch.zeros((values.shape[0], capacity), dtype=values.dtype, device=dev)
+    out = torch.zeros(values.shape[:-1] + (capacity,), dtype=values.dtype, device=dev)
     tiles = -(-n // _TILE)
-    scratch = torch.empty(2 * tiles + 1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(batch * (2 * tiles + 1), dtype=torch.int32, device=dev)
     err = lib.apc_masked_compact(
         values.data_ptr(), mask.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        values.shape[0], n, capacity, _build.stream_handle(dev),
+        batch, c, n, capacity, _build.stream_handle(dev),
     )
     _build.check(err, "masked_compact")
     _build.LAUNCHES["masked_compact"] += 1
     return out
 
 
+def run_ids(run_start: torch.Tensor) -> torch.Tensor:
+    """Run index of every column (int64, same shape): column 0 of each scan
+    opens its run 0 whatever its flag."""
+    flags = run_start.clone()
+    flags[..., 0] = False
+    return torch.cumsum(flags, -1)
+
+
 def segmented_sums_plain(values: torch.Tensor, run_start: torch.Tensor) -> torch.Tensor:
     """Plain version of K2 (same contract as ``segmented_sums``).
 
-    On the CPU ``index_add_`` adds in column order, as the kernel does.
+    On the CPU ``index_add_`` adds in column order, as the kernel does;
+    each scan's runs go to its own columns.
     """
-    flags = run_start.clone()
-    flags[0] = False
-    run_id = torch.cumsum(flags, 0)
-    return torch.zeros_like(values).index_add_(1, run_id, values)
+    c, n = values.shape[-2:]
+    ids = run_ids(run_start).reshape(-1, n)
+    batch = ids.shape[0]
+    ids = ids + torch.arange(batch, device=ids.device)[:, None] * n
+    flat = values.reshape(batch, c, n).transpose(0, 1).reshape(c, batch * n)
+    out = torch.zeros_like(flat).index_add_(1, ids.reshape(-1), flat)
+    return out.reshape(c, batch, n).transpose(0, 1).reshape(values.shape)
 
 
 def segmented_sums(values: torch.Tensor, run_start: torch.Tensor) -> torch.Tensor:
     """Per-run sums of ``values`` over contiguous runs.
 
     Args:
-        values: float32[C<=8, N] channel rows.
-        run_start: bool[N]; True where a new run begins (element 0's flag
-            is ignored: it always starts run 0).
+        values: float32[C<=8, N] or [B, C<=8, N] channel rows.
+        run_start: bool[N] or [B, N]; True where a new run begins (each
+            scan's column 0 always opens its run 0, whatever its flag).
     Returns:
-        float32[C, N]: column s holds the sum of run s, each summed in
-        column order; columns past the last run are zero.
+        float32[..., C, N]: column s of a scan holds the sum of its run s,
+        each summed in column order; columns past its last run are zero.
     """
-    _check_rows("segmented_sums", values, run_start, (torch.float32,))
-    n = values.shape[1]
+    batch, c, n = _check_rows("segmented_sums", values, run_start, (torch.float32,))
     if n == 0:
         return values.clone()
     if values.device.type == "cpu":
@@ -119,10 +138,10 @@ def segmented_sums(values: torch.Tensor, run_start: torch.Tensor) -> torch.Tenso
     dev = values.device
     out = torch.zeros_like(values)
     tiles = -(-n // _TILE)
-    scratch = torch.empty(2 * tiles + 1 + n, dtype=torch.int32, device=dev)
+    scratch = torch.empty(batch * (2 * tiles + 1 + n), dtype=torch.int32, device=dev)
     err = lib.apc_segmented_sums(
         values.data_ptr(), run_start.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), values.shape[0], n, _build.stream_handle(dev),
+        scratch.data_ptr(), batch, c, n, _build.stream_handle(dev),
     )
     _build.check(err, "segmented_sums")
     _build.LAUNCHES["segmented_sums"] += 1

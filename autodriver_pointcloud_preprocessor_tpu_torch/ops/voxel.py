@@ -18,6 +18,9 @@ the reference's ``first_attrs=True``. Its ``first_attrs=False`` lets any
 copy donate, so this is one of its allowed outcomes too; the setting
 (``voxel_first_attrs``) changes nothing here.
 
+A batched buffer sorts and reduces each scan on its own: the sorts run
+along the last axis and K2 takes the batch in one launch.
+
 Not ported yet: the ``'wide'`` compact-key tier and integer attributes
 wider than 16 bits on the host (ROADMAP item 5).
 """
@@ -49,22 +52,24 @@ def voxel_downsample(
         buf, voxel_size, dedup_exact, curve_order, compact_keys
     )
     sums = torch.cat([
-        segmented_sums(channels[s : s + _MAX_CHANNELS], run_start)
-        for s in range(0, channels.shape[0], _MAX_CHANNELS)
-    ])
-    counts = sums[0]
-    denom = torch.clamp(counts, min=1.0)
+        segmented_sums(channels[..., s : s + _MAX_CHANNELS, :].contiguous(), run_start)
+        for s in range(0, channels.shape[-2], _MAX_CHANNELS)
+    ], dim=-2)
+    counts = sums[..., 0, :]
+    denom = torch.clamp(counts, min=1.0).unsqueeze(-2)
     attrs = {}
     ch = 4
     for name, nrows in mean_rows:
         orig = buf.attributes[name]
-        attrs[name] = (sums[ch : ch + nrows] / denom).reshape(orig.shape).to(orig.dtype)
+        rows = sums[..., ch : ch + nrows, :] / denom
+        attrs[name] = rows.reshape(orig.shape).to(orig.dtype)
         ch += nrows
     for name, nrows in first_rows:
         orig = buf.attributes[name]
-        attrs[name] = torch.round(sums[ch : ch + nrows]).reshape(orig.shape).to(orig.dtype)
+        rows = torch.round(sums[..., ch : ch + nrows, :])
+        attrs[name] = rows.reshape(orig.shape).to(orig.dtype)
         ch += nrows
-    return ScanBuffer(positions=sums[1:4] / denom, mask=counts > 0, attributes=attrs)
+    return ScanBuffer(positions=sums[..., 1:4, :] / denom, mask=counts > 0, attributes=attrs)
 
 
 def sorted_voxel_channels(
@@ -76,8 +81,8 @@ def sorted_voxel_channels(
 ):
     """The voxel sort: the K2 input of ``voxel_downsample``.
 
-    Returns ``(channels float32[C, N], run_start bool[N], mean_rows,
-    first_rows)``: channels are [w, x*w, y*w, z*w] followed by the float
+    Returns ``(channels float32[..., C, N], run_start bool[..., N],
+    mean_rows, first_rows)``: channels are [w, x*w, y*w, z*w] followed by the float
     attribute rows times w and the narrow integer rows times the run-start
     flag, all in sort order (w = 1 on included rows); ``mean_rows`` and
     ``first_rows`` list (attribute name, row count) in channel order.
@@ -95,6 +100,7 @@ def sorted_voxel_channels(
     if compact_keys and not curve_order:
         raise ValueError("compact_keys requires curve_order")
     n = buf.capacity
+    lead = buf.batch_shape
     dev = buf.device
     valid = buf.mask
     x, y, z = buf.x, buf.y, buf.z
@@ -111,11 +117,11 @@ def sorted_voxel_channels(
 
     mean_rows, first_rows = [], []  # (name, row tensors)
     for name, arr in sorted(buf.attributes.items()):
-        rows = arr.reshape(-1, n)
+        rows = arr.reshape(lead + (-1, n)).to(torch.float32).unbind(-2)
         if arr.dtype.is_floating_point:
-            mean_rows.append((name, [r.to(torch.float32) for r in rows]))
+            mean_rows.append((name, rows))
         elif np.dtype(ATTR_HOST_DTYPES.get(name, np.int64)).itemsize <= 2:
-            first_rows.append((name, [r.to(torch.float32) for r in rows]))
+            first_rows.append((name, rows))
         else:
             raise NotImplementedError(
                 f"attribute {name!r}: integer attributes wider than 16 bits "
@@ -126,8 +132,8 @@ def sorted_voxel_channels(
     if curve_order:
         cells = []
         for v in (vx, vy, vz):
-            lo = torch.where(valid, v, big).min()
-            hi = torch.where(valid, v, -big).max()
+            lo = torch.where(valid, v, big).amin(-1, keepdim=True)
+            hi = torch.where(valid, v, -big).amax(-1, keepdim=True)
             center = lo + (hi - lo) // 2
             cells.append(torch.clamp(v - center + 512, 0, 1023))
         hkey = hilbert_cell_codes(cells, valid)
@@ -139,42 +145,43 @@ def sorted_voxel_channels(
         keys += [kx, ky, kz]
     order = lexsort(keys)
 
+    def by_order(v):
+        return v.gather(-1, order)
+
     if curve_order:
-        svalid = hkey[order] < _SENTINEL
+        svalid = by_order(hkey) < _SENTINEL
     else:
-        svalid = vx[order] < _BIG
-    if compact_keys:
-        ident = (hkey[order],)
-    else:
-        ident = (vx[order], vy[order], vz[order])
-    new_group = torch.ones(n, dtype=torch.bool, device=dev)
-    same = torch.ones(n - 1, dtype=torch.bool, device=dev)
-    for key in ident:
-        same &= key[1:] == key[:-1]
-    new_group[1:] = ~same
-    new_group &= svalid
+        svalid = by_order(vx) < _BIG
+    ident = (hkey,) if compact_keys else (vx, vy, vz)
+
+    def repeats(keys_):
+        """True where a sorted row's keys all equal the previous row's."""
+        same = torch.zeros(lead + (n,), dtype=torch.bool, device=dev)
+        same[..., 1:] = True
+        for key in keys_:
+            sk = by_order(key)
+            same[..., 1:] &= sk[..., 1:] == sk[..., :-1]
+        return same
+
+    new_group = ~repeats(ident) & svalid
     included = svalid
     if dedup_exact:
-        sk = [kk[order] for kk in (kx, ky, kz)]
-        dup = torch.zeros(n, dtype=torch.bool, device=dev)
-        dup[1:] = (
-            (sk[0][1:] == sk[0][:-1]) & (sk[1][1:] == sk[1][:-1]) & (sk[2][1:] == sk[2][:-1])
-        )
-        included = svalid & ~dup
+        included = svalid & ~repeats((kx, ky, kz))
     w = included.to(torch.float32)
     flag_f = new_group.to(torch.float32)
 
     # NaN discipline: excluded rows keep NaN coordinates; zero them before
     # they meet a weight (NaN * 0 = NaN would poison the segment)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    sorted_pos = buf.positions[:, order]
-    channels = [w] + [torch.where(included, sorted_pos[c], zero) * w for c in range(3)]
+    channels = [w] + [
+        torch.where(included, by_order(buf.positions[..., c, :]), zero) * w for c in range(3)
+    ]
     for _, rows in mean_rows:
-        channels += [torch.where(included, r[order], zero) * w for r in rows]
+        channels += [torch.where(included, by_order(r), zero) * w for r in rows]
     for _, rows in first_rows:
-        channels += [torch.where(included, r[order], zero) * flag_f for r in rows]
+        channels += [torch.where(included, by_order(r), zero) * flag_f for r in rows]
     return (
-        torch.stack(channels),
+        torch.stack(channels, dim=-2),
         new_group | ~svalid,
         [(name, len(rows)) for name, rows in mean_rows],
         [(name, len(rows)) for name, rows in first_rows],

@@ -16,6 +16,10 @@ normals, the second radius, and the non-presorted entry.
 
 Sorts here are stable; the reference's pass-1 re-sort is not, so the two
 order ties (distinct points in one curve cell) differently.
+
+Everything takes an optional leading batch axis (positions [B, 3, N], mask
+[B, N]): bounds, sorts and windows are per scan, and each kernel launch
+covers the batch.
 """
 from __future__ import annotations
 
@@ -60,9 +64,9 @@ def _quantize_axes(positions, mask, origin_shift: float):
     big = 3.4e38
     out = []
     for c in range(3):
-        v = positions[c]
-        lo = torch.where(mask, v, big).min()
-        hi = torch.where(mask, v, -big).max()
+        v = positions[..., c, :]
+        lo = torch.where(mask, v, big).amin(-1, keepdim=True)
+        hi = torch.where(mask, v, -big).amax(-1, keepdim=True)
         scale = torch.div(
             torch.full_like(hi, 1023.0 - origin_shift), torch.clamp(hi - lo, min=1e-12)
         )
@@ -127,27 +131,29 @@ def _sorted_rows(positions, mask, pass_idx: int, extra=()):
     the sorted code (invalid rows carry the sentinel).
     """
     perm = _PASS_PERMS[pass_idx % len(_PASS_PERMS)]
-    codes = hilbert_codes(positions[list(perm)], mask, _pass_shift(pass_idx))
-    codes, order = torch.sort(codes, stable=True)
+    codes = hilbert_codes(positions[..., list(perm), :], mask, _pass_shift(pass_idx))
+    codes, order = torch.sort(codes, dim=-1, stable=True)
     return (
-        *(positions[c][order] for c in range(3)),
+        *(positions[..., c, :].gather(-1, order) for c in range(3)),
         codes < _SENTINEL,
-        *(r[order] for r in extra),
+        *(r.gather(-1, order) for r in extra),
     )
 
 
 def _entries_from_moments(mom):
-    """Centered covariance entries (6, ...) from raw moment rows (10, ...)."""
-    nw = torch.clamp(mom[0], min=1.0)
-    mx, my, mz = mom[1] / nw, mom[2] / nw, mom[3] / nw
+    """Centered covariance entries [..., 6, N] from raw moment rows
+    [..., 10, N]."""
+    m = mom.unbind(-2)
+    nw = torch.clamp(m[0], min=1.0)
+    mx, my, mz = m[1] / nw, m[2] / nw, m[3] / nw
     return torch.stack([
-        mom[4] - nw * mx * mx,
-        mom[5] - nw * my * my,
-        mom[6] - nw * mz * mz,
-        mom[7] - nw * mx * my,
-        mom[8] - nw * mx * mz,
-        mom[9] - nw * my * mz,
-    ])
+        m[4] - nw * mx * mx,
+        m[5] - nw * my * my,
+        m[6] - nw * mz * mz,
+        m[7] - nw * mx * my,
+        m[8] - nw * mx * mz,
+        m[9] - nw * my * mz,
+    ], dim=-2)
 
 
 def _oct_encode(nx, ny, nz):
@@ -192,10 +198,10 @@ def _oct_decode(u, v):
 
 def _thin_sort_slice(px, py, pz, m, carry, shrink_to: int):
     """Overflow path of the presorted shrink: a deterministic binomial
-    thin (hash of the slot index) to ~``shrink_to`` live points, the
-    pass-0 curve sort, and a prefix slice."""
+    thin (hash of the slot index) to ~``shrink_to`` live points per scan,
+    the pass-0 curve sort, and a prefix slice."""
     n = px.shape[-1]
-    n_live = m.sum()
+    n_live = m.sum(-1, keepdim=True)
     slot = torch.arange(n, dtype=torch.int64, device=px.device)
     # the reference's int32 wraparound product, reinterpreted as uint32
     pri = (slot * -1640531527) & 0xFFFFFFFF
@@ -205,8 +211,8 @@ def _thin_sort_slice(px, py, pz, m, carry, shrink_to: int):
     )
     keep = pri.to(torch.float32) < p * 2.0**32
     m = m & ((n_live <= shrink_to) | keep)
-    rows = _sorted_rows(torch.stack([px, py, pz]), m, 0, extra=carry)
-    return [r[:shrink_to] for r in rows]
+    rows = _sorted_rows(torch.stack([px, py, pz], dim=-2), m, 0, extra=carry)
+    return [r[..., :shrink_to] for r in rows]
 
 
 def _fused_passes(positions, mask, carry, *, k, radius, window_blocks, passes,
@@ -217,7 +223,10 @@ def _fused_passes(positions, mask, carry, *, k, radius, window_blocks, passes,
     order (the curve-ordered voxel stage), so pass 0 needs no sort and
     ``shrink_to`` is a prefix slice. When more than ``shrink_to`` points
     are live, a binomial thin and a pass-0 sort run instead; deciding that
-    reads the live count on the host (one device sync). Each later pass
+    reads the live counts on the host (one device sync for a whole batch).
+    When any scan of a batch overflows, the thin runs for the batch and
+    each scan takes its own branch by a select, as the reference's
+    ``lax.cond`` does under ``vmap``. Each later pass
     re-sorts the rows, the ``carry`` rows and the pass statistics along
     its own curve. Normals and the in-radius count come from pass 0 (the
     normal rides the re-sorts as one octahedral-packed int32 row); the kNN
@@ -238,26 +247,26 @@ def _fused_passes(positions, mask, carry, *, k, radius, window_blocks, passes,
         return mean_s, mom_s
 
     n = positions.shape[-1]
-    carry = list(carry)
+    px, py, pz = (positions[..., c, :] for c in range(3))
+    rows = [px, py, pz, mask, *carry]
     if shrink_to and shrink_to < n:
-        if int(mask.sum()) > shrink_to:
-            sx, sy, sz, sv, *carry = _thin_sort_slice(
-                positions[0], positions[1], positions[2], mask, carry, shrink_to
-            )
+        live = mask.sum(-1)
+        prefix = [r[..., :shrink_to] for r in rows]
+        if int(live.max()) > shrink_to:  # one host read for the batch
+            thin = _thin_sort_slice(px, py, pz, mask, carry, shrink_to)
+            over = (live > shrink_to)[..., None]
+            rows = [torch.where(over, t, p) for t, p in zip(thin, prefix)]
         else:
-            sx, sy, sz = (positions[c, :shrink_to] for c in range(3))
-            sv = mask[:shrink_to]
-            carry = [c[:shrink_to] for c in carry]
-    else:
-        sx, sy, sz, sv = positions[0], positions[1], positions[2], mask
+            rows = prefix
+    sx, sy, sz, sv, *carry = (r.contiguous() for r in rows)
 
     mean, mom = one_pass(sx, sy, sz, sv, 0, wbs[0])
-    count = mom[0]
-    nrm0 = _normals_from_entries(*_entries_from_moments(mom), count)
-    stat_n = _oct_pack(*_oct_encode(nrm0[0], nrm0[1], nrm0[2]))
+    count = mom[..., 0, :]
+    nrm0 = _normals_from_entries(*_entries_from_moments(mom).unbind(-2), count)
+    stat_n = _oct_pack(*_oct_encode(*nrm0.unbind(-2)))
     for p_i in range(1, passes):
         sx, sy, sz, sv, *rest = _sorted_rows(
-            torch.stack([sx, sy, sz]), sv, p_i, extra=(*carry, mean, count, stat_n)
+            torch.stack([sx, sy, sz], dim=-2), sv, p_i, extra=(*carry, mean, count, stat_n)
         )
         carry, (mean, count, stat_n) = rest[:-3], rest[-3:]
         m2, _ = one_pass(sx, sy, sz, sv, p_i % 2, wbs[p_i], moments=False)
@@ -287,17 +296,19 @@ def fused_neighborhood_stats_reordered(
     ride the curve sorts and come back in the last pass's curve order,
     statistics aligned (the pipeline has no point-order contract after the
     voxel stage). ``shrink_to`` (multiple of 128, 0 = off) shrinks the
-    buffer to that capacity.
+    buffer to that capacity. Positions [..., 3, N], mask [..., N] and
+    attributes [..., N] / [..., C, N] may carry a batch axis.
 
     Returns ``(positions, mask, attrs, mean_knn, normals, count)``; the
     mean and count are zero on invalid rows.
     """
     n = positions.shape[-1]
+    lead = mask.shape[:-1]
     flat, specs = [], []
     for name, v in attrs.items():
-        rows = v.reshape(-1, n)
-        specs.append((name, v.shape, rows.shape[0]))
-        flat.extend(rows[i] for i in range(rows.shape[0]))
+        rows = v.reshape(lead + (-1, n)).unbind(-2)
+        specs.append((name, v.shape, len(rows)))
+        flat.extend(rows)
 
     sx, sy, sz, sv, flat, mean, count, nx, ny, nz = _fused_passes(
         positions, mask, flat, k=k, radius=radius, window_blocks=window_blocks,
@@ -306,14 +317,14 @@ def fused_neighborhood_stats_reordered(
     n_out = sx.shape[-1]
     out_attrs, i = {}, 0
     for name, shape, nrows in specs:
-        out_attrs[name] = torch.stack(flat[i : i + nrows]).reshape(shape[:-1] + (n_out,))
+        out_attrs[name] = torch.stack(flat[i : i + nrows], dim=-2).reshape(shape[:-1] + (n_out,))
         i += nrows
     zero = torch.zeros((), dtype=mean.dtype, device=mean.device)
     return (
-        torch.stack([sx, sy, sz]),
+        torch.stack([sx, sy, sz], dim=-2),
         sv,
         out_attrs,
         torch.where(sv, mean, zero),
-        torch.stack([nx, ny, nz]),
+        torch.stack([nx, ny, nz], dim=-2),
         torch.where(sv, count, zero),
     )

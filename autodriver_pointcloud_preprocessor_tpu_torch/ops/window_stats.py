@@ -15,9 +15,10 @@ broken by window row.
 
 Deliberate deviation: the reference computes d2 with an MXU matmul in
 'highest' or 'fast3' precision (``knn_d2mode``); here d2 is the plain f32
-sum of squared coordinate differences for both. Not ported yet: kmode
-'bisect', the second radius (``radius2``) and the batch axis (ROADMAP,
-kernels queue).
+sum of squared coordinate differences for both. Rows may carry a leading
+batch axis with a squared radius per scan (the reference's ``custom_vmap``
+rule); each scan's windows stop at its own ends. Not ported yet: kmode
+'bisect' and the second radius (``radius2``) (ROADMAP, kernels queue).
 """
 from __future__ import annotations
 
@@ -66,7 +67,17 @@ def window_stats_plain(
     kmode: str, direction: int, moments: bool,
 ):
     """Plain version of K3 (same contract as ``window_stats``, which
-    validates the arguments). ``r2`` is the squared radius, float32[1]."""
+    validates the arguments). Rows are [N] or [B, N]; ``r2`` holds the
+    squared radius, float32[1] or one per scan [B]. A batch runs scan by
+    scan, each with its own windows and radius."""
+    if x.dim() == 2:
+        r2 = r2.reshape(-1).expand(x.shape[0])
+        outs = [
+            window_stats_plain(x[i], y[i], z[i], valid[i], r2[i : i + 1], k,
+                               window_blocks, kmode, direction, moments)
+            for i in range(x.shape[0])
+        ]
+        return tuple(torch.stack(o) for o in zip(*outs))
     n = x.numel()
     dev = x.device
     span, qoff = _window_geometry(window_blocks, direction)
@@ -167,9 +178,11 @@ def window_stats(
     """Windowed stats over curve-sorted planar rows.
 
     Args:
-        sorted_x/y/z: float32[N] positions in curve order (N % 128 == 0).
-        sorted_valid: bool[N].
-        radius: in-radius threshold for the moments.
+        sorted_x/y/z: float32[N] or [B, N] positions in curve order
+            (N % 128 == 0); a leading axis is a batch of scans.
+        sorted_valid: bool, the rows' shape.
+        radius: in-radius threshold for the moments: a float, a 0-d
+            tensor, or one per scan [B].
         k: neighbour count of the mean-distance statistic (1..64).
         window_blocks: candidate radius in 128-row blocks (0..7); 0 is the
             one-sided window chosen by ``direction``.
@@ -178,10 +191,10 @@ def window_stats(
         direction: for ``window_blocks == 0``: 0 = next block, 1 = previous.
         moments: False skips the moments (their rows come back zero).
     Returns:
-        (mean_knn_dist float32[N], knn_count float32[N], moments
-        float32[10, N]); moments rows are [n, Sx, Sy, Sz, Sxx, Syy, Szz, Sxy,
-        Sxz, Syz] over in-radius valid candidates (self included) about the
-        block origin. Entries of invalid queries are meaningless.
+        (mean_knn_dist float32[..., N], knn_count float32[..., N], moments
+        float32[..., 10, N]); moments rows are [n, Sx, Sy, Sz, Sxx, Syy,
+        Szz, Sxy, Sxz, Syz] over in-radius valid candidates (self included)
+        about the block origin. Entries of invalid queries are meaningless.
     """
     if kmode == "bisect":
         raise NotImplementedError(
@@ -197,27 +210,32 @@ def window_stats(
         raise ValueError(f"direction={direction} not in (0, 1)")
     direction = direction if window_blocks == 0 else 0
     rows = (sorted_x, sorted_y, sorted_z)
-    n = sorted_x.numel()
-    if n % B or any(r.shape != (n,) or r.dtype != torch.float32 for r in rows):
-        raise ValueError("window_stats: x/y/z must be float32[N] with N % 128 == 0")
-    if sorted_valid.shape != (n,) or sorted_valid.dtype != torch.bool:
-        raise ValueError("window_stats: valid must be bool[N]")
+    shape = sorted_x.shape
+    if len(shape) not in (1, 2) or shape[-1] % B or any(
+        r.shape != shape or r.dtype != torch.float32 for r in rows
+    ):
+        raise ValueError("window_stats: x/y/z must be float32[N] or [B, N] with N % 128 == 0")
+    if sorted_valid.shape != shape or sorted_valid.dtype != torch.bool:
+        raise ValueError(f"window_stats: valid must be bool{list(shape)}")
+    batch, n = (shape[0] if len(shape) == 2 else 1), shape[-1]
     dev = sorted_x.device
-    rad = torch.as_tensor(radius, dtype=torch.float32, device=dev).reshape(1)
-    r2 = rad * rad
+    rad = torch.as_tensor(radius, dtype=torch.float32, device=dev).reshape(-1)
+    if rad.numel() not in (1, batch):
+        raise ValueError(f"window_stats: {rad.numel()} radii for {batch} scans")
+    r2 = (rad * rad).expand(batch).contiguous()
     if dev.type == "cpu":
         return window_stats_plain(
             *rows, sorted_valid, r2, k, window_blocks, kmode, direction, moments
         )
     _build.require_cuda("window_stats", *rows, sorted_valid, r2)
     lib = _build.load_library()
-    mean = torch.empty(n, dtype=torch.float32, device=dev)
-    cnt = torch.empty(n, dtype=torch.float32, device=dev)
-    mom = torch.empty((10, n), dtype=torch.float32, device=dev)
+    mean = torch.empty(shape, dtype=torch.float32, device=dev)
+    cnt = torch.empty(shape, dtype=torch.float32, device=dev)
+    mom = torch.empty(shape[:-1] + (10, n), dtype=torch.float32, device=dev)
     err = lib.apc_window_stats(
         *(r.data_ptr() for r in rows), sorted_valid.data_ptr(), r2.data_ptr(),
         mean.data_ptr(), cnt.data_ptr(), mom.data_ptr(),
-        n, k, window_blocks, direction, _KMODES[kmode], int(moments),
+        batch, n, k, window_blocks, direction, _KMODES[kmode], int(moments),
         _build.stream_handle(dev),
     )
     _build.check(err, "window_stats")

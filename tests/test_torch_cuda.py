@@ -15,13 +15,16 @@ from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import (
     params_from_config,
     settings_from_config,
 )
+from autodriver_pointcloud_preprocessor_tpu_torch.models.preprocessor import Preprocessor
 from autodriver_pointcloud_preprocessor_tpu_torch.models.presets import (
     PRODUCTION_128K_CONFIG,
 )
 from autodriver_pointcloud_preprocessor_tpu_torch.ops import _build
 from autodriver_pointcloud_preprocessor_tpu_torch.ops.segmean import (
     masked_compact,
+    masked_compact_plain,
     segmented_sums,
+    segmented_sums_plain,
 )
 from autodriver_pointcloud_preprocessor_tpu_torch.ops.window_stats import window_stats
 
@@ -105,19 +108,94 @@ def test_wrappers_reject_bad_inputs(cuda):
         segmented_sums(torch.zeros((2, 512), device=cuda)[:, ::2], v)
 
 
-def test_pipeline_on_card_matches_cpu(cuda):
-    rng = _rng(1)
+def _bits(t):
+    t = t.cpu()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def test_batched_kernels_equal_unbatched_launches(cuda):
+    rng = _rng(3)
+    b, n = 3, 8192
+    vals = torch.from_numpy(rng.normal(0, 10, (b, 5, n)).astype(np.float32))
+    mask = torch.from_numpy(rng.uniform(size=(b, n)) < np.array([[0.3], [0.9], [0.0]]))
+    flags = torch.from_numpy(rng.uniform(size=(b, n)) < np.array([[0.1], [0.7], [1.0]]))
+    flags[1, 0] = False
+    vals_d, mask_d, flags_d = vals.to(cuda), mask.to(cuda), flags.to(cuda)
+    before = dict(_build.LAUNCHES)
+    k1 = masked_compact(vals_d, mask_d, 4096)
+    k2 = segmented_sums(vals_d, flags_d)
+    assert _build.LAUNCHES["masked_compact"] == before["masked_compact"] + 1
+    assert _build.LAUNCHES["segmented_sums"] == before["segmented_sums"] + 1
+    assert torch.equal(_bits(k1), _bits(masked_compact_plain(vals, mask, 4096)))
+    assert torch.equal(k2.cpu(), segmented_sums_plain(vals, flags))
+    for i in range(b):
+        assert torch.equal(_bits(k1[i]), _bits(masked_compact(vals_d[i], mask_d[i], 4096)))
+        assert torch.equal(_bits(k2[i]), _bits(segmented_sums(vals_d[i], flags_d[i])))
+
+    # K3: scan 1 is scan 0 reversed, so a flat row would reach across
+    pts = (rng.uniform(-5, 5, (16, 3))[rng.integers(0, 16, n)]
+           + rng.normal(0, 0.4, (n, 3))).astype(np.float32)
+    pts = pts[np.lexsort(pts.T[::-1])]
+    pts = np.stack([pts, pts[::-1]])
+    rows = [torch.from_numpy(np.ascontiguousarray(pts[..., c])).to(cuda) for c in range(3)]
+    valid = torch.ones((2, n), dtype=torch.bool, device=cuda)
+    radius = torch.tensor([0.3, 0.45], device=cuda)
+    for kmode, wb, direction, k in (("csel", 1, 0, 20), ("sweep", 2, 0, 8), ("csel", 0, 1, 20)):
+        args = dict(k=k, window_blocks=wb, kmode=kmode, direction=direction)
+        got = window_stats(*rows, valid, radius, **args)
+        want = window_stats(*(r.cpu() for r in rows), valid.cpu(), radius.cpu(), **args)
+        for i in range(2):
+            alone = window_stats(*(r[i] for r in rows), valid[i], radius[i], **args)
+            for g, a in zip(got, alone):
+                assert torch.equal(_bits(g[i]), _bits(a))
+            rel = (got[0][i].cpu() - want[0][i]).abs() / want[0][i].abs().clamp(min=1e-12)
+            assert float((rel <= 1e-5).float().mean()) >= 0.999
+            assert torch.equal(got[1][i].cpu(), want[1][i])
+            assert torch.equal(got[2][i][0].cpu(), want[2][i][0])
+
+
+def _scene_soa(seed, ground):
+    rng = _rng(seed)
     n = 8000
+    n_ground = int(n * ground)
     pts = np.column_stack([rng.uniform(-10, 10, (n, 2)), rng.normal(0, 0.03, n)])
-    pts[n // 2 :] = rng.normal(0, 1.0, (n - n // 2, 3)) + [3, 3, 1.5]
-    soa = {"positions": pts.astype(np.float32),
-           "intensity": rng.uniform(0, 255, n).astype(np.float32),
-           "ring": rng.integers(0, 32, n).astype(np.uint16)}
-    cfg = {**PRODUCTION_128K_CONFIG, "downsample.pre_voxel_capacity": 4096,
-           "downsample.max_points": 3584}
+    pts[n_ground:] = rng.normal(0, 1.0, (n - n_ground, 3)) + [3, 3, 1.5]
+    return {"positions": pts.astype(np.float32),
+            "intensity": rng.uniform(0, 255, n).astype(np.float32),
+            "ring": rng.integers(0, 32, n).astype(np.uint16)}
+
+
+_SLICE_CFG = {**PRODUCTION_128K_CONFIG, "downsample.pre_voxel_capacity": 4096,
+              "downsample.max_points": 3584}
+
+
+def test_process_batch_on_card_launches_once_per_batch(cuda):
+    engine = Preprocessor(_SLICE_CFG)
+    assert engine.device == cuda
+    bufs = [from_soa(_scene_soa(i, g), capacity=8192)[0] for i, g in enumerate((0.6, 0.3, 0.5))]
+    s = engine.settings
+    u = torch.from_numpy(_rng(9).uniform(size=(3, s.num_iterations, s.ransac_n))
+                         .astype(np.float32)).to(cuda)
+    results = {}
+    for sequential, per_batch in ((False, (1, 1, 2)), (True, (3, 3, 6))):
+        _build.reset_launches()
+        outs, planes = engine.process_batch(bufs, sequential=sequential, ground_uniforms=u)
+        torch.cuda.synchronize()
+        assert tuple(_build.LAUNCHES[k] for k in
+                     ("masked_compact", "segmented_sums", "window_stats")) == per_batch
+        assert planes.shape == (3, 4)
+        results[sequential] = outs
+    for a, b in zip(results[False], results[True]):
+        assert torch.equal(a.mask, b.mask)
+        assert torch.equal(_bits(a.positions[:, a.mask]), _bits(b.positions[:, b.mask]))
+
+
+def test_pipeline_on_card_matches_cpu(cuda):
+    soa = _scene_soa(1, 0.5)
+    cfg = _SLICE_CFG
     settings = settings_from_config(cfg)
     run = build_pipeline(settings)
-    u = torch.from_numpy(rng.uniform(size=(settings.num_iterations, settings.ransac_n))
+    u = torch.from_numpy(_rng(2).uniform(size=(settings.num_iterations, settings.ransac_n))
                          .astype(np.float32))
     outs = []
     for dev in (cuda, torch.device("cpu")):

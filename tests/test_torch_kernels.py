@@ -1,7 +1,11 @@
 """Port kernels (plain PyTorch versions, CPU) against the reference Pallas
 kernels run in interpret mode: K1 masked compaction, K2 segmented sums,
-K3 window statistics. The same numpy inputs, made from a seed, go to both.
+K3 window statistics, single-scan and with a batch axis (the reference
+under ``jax.vmap``). The same numpy inputs, made from a seed, go to both.
 """
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -70,6 +74,7 @@ def test_stream_compact_to_bit_exact(rng):
         scan_from_reference(
             np.asarray(buf.positions), np.asarray(buf.mask),
             {k: np.asarray(v) for k, v in buf.attributes.items()},
+            device="cpu",
         ),
         cap,
     )
@@ -205,6 +210,12 @@ def test_window_stats_sweep_matches_reference(wb, direction, k):
     radius = 0.35
     r2 = float(np.float32(radius) ** 2)
     ref, port = _both(pts, valid, radius, k, wb, direction, "sweep", "highest")
+    _check_sweep(pts, valid, ref, port, wb, direction, k, r2)
+
+
+def _check_sweep(pts, valid, ref, port, wb, direction, k, r2):
+    """The sweep criteria: port and reference (mean, count, moments) of
+    one scan against each other and a float64 oracle."""
     live = valid & np.isfinite(pts).all(1)
     exact, exact_count, boundary = _oracle(pts, valid, wb, direction, k, r2)
     # the port is exact up to the 11-bit d2 truncation (2^-13 of a distance)
@@ -238,9 +249,17 @@ def test_window_stats_sweep_matches_reference(wb, direction, k):
 @pytest.mark.parametrize("wb,direction", [(1, 0), (0, 1)])
 def test_window_stats_csel_matches_reference(wb, direction):
     pts, valid = _curve_sorted_cloud(seed=3 + wb)
-    live = valid & np.isfinite(pts).all(1)
     ref_hi, port = _both(pts, valid, 0.35, 20, wb, direction, "csel", "highest")
     ref_f3, _ = _both(pts, valid, 0.35, 20, wb, direction, "csel", "fast3")
+    sparse = np.zeros(_N, bool)
+    sparse[5 * 128 : 5 * 128 + 5] = True
+    _check_csel(pts, valid, ref_hi, ref_f3, port, sparse)
+
+
+def _check_csel(pts, valid, ref_hi, ref_f3, port, sparse):
+    """The csel criteria for one scan; ``sparse`` marks the queries of the
+    block with fewer than k valid rows."""
+    live = valid & np.isfinite(pts).all(1)
     assert np.isfinite(port[0]).all() and (port[0] >= 0).all()
     np.testing.assert_array_equal(port[1][live], ref_hi[1][live])
     # same select on (nearly) the same distances: within 1e-3 for >= 99%
@@ -252,9 +271,109 @@ def test_window_stats_csel_matches_reference(wb, direction):
     rel = np.abs(port[0] - ref_f3[0]) / np.maximum(ref_f3[0], 1e-6)
     assert (rel[live] <= 1e-2).mean() >= 0.99
     # the sparse own block's queries take the band-midpoint stand-in
-    sparse = np.zeros(_N, bool)
-    sparse[5 * 128 : 5 * 128 + 5] = True
     np.testing.assert_allclose(port[0][sparse], ref_hi[0][sparse], rtol=1e-3)
+
+
+# ------------------------------------------------------- batch axis ----
+#
+# The batched plain versions against the reference's kernels under
+# jax.vmap (its custom_vmap rule: a batch grid axis), element by element,
+# and against the same scan run alone.
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def test_masked_compact_batch_matches_reference_vmap():
+    rng = np.random.default_rng(21)
+    b, c, n = 3, 5, 2048
+    vals = rng.normal(0, 10, (b, c, n)).astype(np.float32)
+    mask = rng.uniform(size=(b, n)) < np.array([[0.4], [0.9], [0.0]])  # scan 2: none live
+    vals[np.broadcast_to(~mask[:, None, :], vals.shape)] = np.nan
+    ref = np.asarray(jax.vmap(functools.partial(masked_compact_pallas, interpret=True))(
+        jnp.asarray(vals), jnp.asarray(mask)))
+    for cap in (n, 700):
+        out = masked_compact(_t(vals), _t(mask), cap).numpy()
+        assert out.shape == (b, c, cap)
+        for i in range(b):
+            # ranks count within each scan: scan i's first live column
+            # lands in its own column 0
+            live = min(int(mask[i].sum()), cap)
+            np.testing.assert_array_equal(out[i, :, :live].view(np.int32),
+                                          ref[i, :, :live].view(np.int32))
+            assert (out[i, :, live:] == 0).all()
+            alone = masked_compact(_t(vals[i]), _t(mask[i]), cap).numpy()
+            np.testing.assert_array_equal(out[i].view(np.int32), alone.view(np.int32))
+
+
+def test_segmented_sums_batch_matches_reference_vmap():
+    rng = np.random.default_rng(22)
+    n = 4096
+    flags = np.stack([_run_flags(k, n, rng) for k in ("random", "block_crossing", "singletons")])
+    flags[1, 0] = False  # each scan's column 0 opens its run 0 whatever its flag
+    vals = rng.normal(0, 3, (3, 6, n)).astype(np.float32)
+    ref = np.asarray(jax.vmap(functools.partial(segmented_sums_pallas, interpret=True))(
+        jnp.asarray(vals), jnp.asarray(flags)))
+    out = segmented_sums(_t(vals), _t(flags)).numpy()
+    for i in range(3):
+        runs = int(flags[i, 1:].sum()) + 1
+        seg = np.cumsum(np.r_[False, flags[i, 1:]])
+        abs_sums = np.zeros((6, n), np.float64)
+        for ch in range(6):
+            np.add.at(abs_sums[ch], seg, np.abs(vals[i, ch]))
+        err = np.abs(out[i, :, :runs] - ref[i, :, :runs])
+        assert (err <= 1e-6 * np.abs(ref[i, :, :runs]) + 1e-6 * abs_sums[:, :runs]).all()
+        assert (out[i, :, runs:] == 0).all() and (ref[i, :, runs:] == 0).all()
+        alone = segmented_sums(_t(vals[i]), _t(flags[i])).numpy()
+        np.testing.assert_array_equal(out[i], alone)
+
+
+def _batched_clouds():
+    """Two scans in one batch: scan 0 is a clustered cloud whose last rows
+    are live, scan 1 the same rows reversed. Were the batch one flat row,
+    scan 0's last blocks would see their own points (scan 1's first rows)
+    through the window edge."""
+    pts, valid = _curve_sorted_cloud(seed=41)
+    valid[-200:] = True
+    return np.stack([pts, pts[::-1]]), np.stack([valid, valid[::-1]])
+
+
+@pytest.mark.parametrize("kmode", ["sweep", "csel"])
+def test_window_stats_batch_matches_reference_vmap(kmode):
+    wb, direction, k = (2, 0, 8) if kmode == "sweep" else (1, 0, 20)
+    pts, valid = _batched_clouds()
+    radius = np.float32([0.3, 0.4])  # one radius per scan
+
+    def ref(d2mode):
+        fn = functools.partial(window_stats_pallas, k=k, window_blocks=wb, interpret=True,
+                               kmode=kmode, direction=direction, d2mode=d2mode)
+        out = jax.vmap(fn)(*(jnp.asarray(pts[..., c]) for c in range(3)),
+                           jnp.asarray(valid), jnp.asarray(radius))
+        return [np.asarray(a) for a in out]
+
+    args = dict(k=k, window_blocks=wb, kmode=kmode, direction=direction)
+    rows = [_t(pts[..., c]) for c in range(3)]
+    port = [a.numpy() for a in window_stats(*rows, _t(valid), _t(radius), **args)]
+    ref_hi = ref("highest")
+    ref_f3 = ref("fast3") if kmode == "csel" else None
+    for i in range(2):
+        r_i, p_i = [a[i] for a in ref_hi], [a[i] for a in port]
+        if kmode == "sweep":
+            _check_sweep(pts[i], valid[i], r_i, p_i, wb, direction, k, float(radius[i]) ** 2)
+        else:
+            sparse = np.zeros(_N, bool)
+            sparse[5 * 128 : 5 * 128 + 5] = True
+            _check_csel(pts[i], valid[i], r_i, [a[i] for a in ref_f3], p_i,
+                        sparse if i == 0 else sparse[::-1])
+        alone = window_stats(*(r[i] for r in rows), _t(valid[i]), float(radius[i]), **args)
+        for got, want in zip(p_i, alone):
+            np.testing.assert_array_equal(got, want.numpy())
+    # one flat row would reach across the element edge: scan 0's last
+    # block comes out differently
+    flat = window_stats(*(r.reshape(-1) for r in rows), _t(valid).reshape(-1),
+                        float(radius[0]), **args)[0].numpy()
+    edge = slice(_N - 128, _N)
+    assert not np.array_equal(flat[edge], port[0][0][edge])
 
 
 def test_window_stats_rejects_unported_modes():

@@ -37,6 +37,7 @@ def _port(buf):
     return scan_from_reference(
         np.asarray(buf.positions), np.asarray(buf.mask),
         {k: np.asarray(v) for k, v in buf.attributes.items()},
+        device="cpu",
     )
 
 
@@ -55,7 +56,7 @@ def _soa(rng, n, spread=5.0):
 def test_scan_roundtrip_bit_equal_across_packages(rng):
     soa = _soa(rng, 777)
     rbuf, rmeta = ref_core.from_soa(soa)
-    pbuf, pmeta = core.from_soa(soa)
+    pbuf, pmeta = core.from_soa(soa, device="cpu")
     assert pbuf.capacity == rbuf.capacity == core.bucket_capacity(777)
     np.testing.assert_array_equal(pbuf.positions.numpy(), np.asarray(rbuf.positions))
     np.testing.assert_array_equal(pbuf.mask.numpy(), np.asarray(rbuf.mask))
@@ -78,7 +79,7 @@ def test_non_finite_and_crop_masks_equal(rng):
     soa["positions"][::29, 2] = np.inf
     soa["positions"][5] = [4.0, -4.0, 2.0]  # on the ROI faces
     rbuf, _ = ref_core.from_soa(soa)
-    pbuf, _ = core.from_soa(soa)
+    pbuf, _ = core.from_soa(soa, device="cpu")
     for nan, inf in ((True, True), (True, False), (False, True)):
         np.testing.assert_array_equal(
             finite.mask_non_finite(pbuf, nan, inf).mask.numpy(),

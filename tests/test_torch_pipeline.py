@@ -81,6 +81,7 @@ def _to_port(buf):
     return scan_from_reference(
         np.asarray(buf.positions), np.asarray(buf.mask),
         {k: np.asarray(v) for k, v in buf.attributes.items()},
+        device="cpu",
     )
 
 
@@ -116,7 +117,8 @@ def test_stage_by_stage_matches_reference(pallas_interpret):
     settings = ref_pipeline.settings_from_config(CFG)
     rparams = ref_pipeline.params_from_config(CFG)
     pparams = params_from_reference(
-        {f.name: np.asarray(getattr(rparams, f.name)) for f in dataclasses.fields(rparams)}
+        {f.name: np.asarray(getattr(rparams, f.name)) for f in dataclasses.fields(rparams)},
+        device="cpu",
     )
     ref_stages = ref_pipeline.stage_functions(settings)
     port_stages = pipeline.stage_functions(pipeline.settings_from_config(CFG))
@@ -179,12 +181,12 @@ def test_chained_pipeline_matches_reference(pallas_interpret):
     ref_out, ref_plane = ref_pipeline.build_pipeline(settings)(
         rbuf, ref_pipeline.params_from_config(CFG), KEY
     )
-    pbuf, meta = from_soa(_soa(), capacity=CAPACITY)
+    pbuf, meta = from_soa(_soa(), capacity=CAPACITY, device="cpu")
     port_settings = pipeline.settings_from_config(CFG)
     run = pipeline.build_pipeline(port_settings)
     assert run is pipeline.build_pipeline(port_settings)
     port_out, port_plane = run(
-        pbuf, pipeline.params_from_config(CFG), None, ground_uniforms=_uniforms(settings)
+        pbuf, pipeline.params_from_config(CFG, device="cpu"), None, ground_uniforms=_uniforms(settings)
     )
     # the reference's refit is NaN-poisoned on this scene (ROADMAP, faults
     # found), so the planes differ slightly; both find the ground
@@ -216,7 +218,7 @@ def test_neighborhood_overflow_thin_matches_reference(pallas_interpret):
     assert int(rbuf.mask.sum()) > 2048
     ref_out, _ = stages["neighborhood"](rbuf, rparams, KEY)
     port_stage = dict(pipeline.stage_functions(pipeline.settings_from_config(cfg)))["neighborhood"]
-    port_out, _ = port_stage(_to_port(rbuf), pipeline.params_from_config(cfg), None, None)
+    port_out, _ = port_stage(_to_port(rbuf), pipeline.params_from_config(cfg, device="cpu"), None, None)
     assert port_out.capacity == 2048
     # the thin keeps the same points: the union of kept and outlier rows
     kept_ref = _survivors(ref_out.positions, np.ones(2048, bool), ref_out.attributes["normals"])
@@ -246,7 +248,7 @@ def test_front_only_pipeline_matches_reference(pallas_interpret):
         "remove_duplicates", "non_finite", "crop", "ground",
     ]
     run = pipeline.build_pipeline(pipeline.settings_from_config(cfg))
-    out, plane = run(_to_port(rbuf), pipeline.params_from_config(cfg), None,
+    out, plane = run(_to_port(rbuf), pipeline.params_from_config(cfg, device="cpu"), None,
                      _uniforms(settings))
     rb, rplane = rbuf, None
     for _, fn in ref_stages:
@@ -267,7 +269,7 @@ def test_front_only_pipeline_matches_reference(pallas_interpret):
         {"downsample_method": "random"},
         {"normals_merge_passes": True},
         {"remove_radius_outliers": True},
-        {"offset_pointcloud_matrix": [2, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1]},
+        {"knn_kmode": "bisect"},
         {"roi_min": [-500.0, -500.0, -20.0], "roi_max": [500.0, 500.0, 20.0]},
     ],
 )
@@ -282,6 +284,7 @@ def test_port_imports_without_jax():
         "import autodriver_pointcloud_preprocessor_tpu_torch\n"
         "import autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline\n"
         "import autodriver_pointcloud_preprocessor_tpu_torch.convert\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.models.preprocessor\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(m.startswith('autodriver_pointcloud_preprocessor_tpu.')"
         " or m == 'autodriver_pointcloud_preprocessor_tpu' for m in sys.modules)\n"
