@@ -7,14 +7,20 @@
 //   * the mean distance to the k nearest valid candidates (kmode 0
 //     'sweep': exact; kmode 1 'csel': the own-block k-th as threshold, 2
 //     refinement bisections and the at-threshold correction, with the
-//     band-midpoint stand-in when the own block is sparse);
+//     band-midpoint stand-in when the own block is sparse; kmode 2
+//     'bisect': 13 bisections of count(d2 <= t) >= k on the untruncated
+//     d2 from the own block's max distance, or the window's when the own
+//     block holds fewer than k valid rows, and the same correction);
 //   * the k-select count (hits, at most k);
 //   * when moments != 0, the 10 raw moments [n, Sx, Sy, Sz, Sxx, Syy, Szz,
 //     Sxy, Sxz, Syz] of the in-radius valid candidates, about the block
 //     origin (the mean of the block's 128 sanitized query rows, summed as
-//     a fixed-order tree that the plain PyTorch version repeats).
-// Batch axis: rows are [batch, n] and r2 is [batch] (one squared radius per
-// scan, as the reference's per-scan r2 row, pallas_window.py:461-467); the
+//     a fixed-order tree that the plain PyTorch version repeats);
+//   * when count2 is not null, the count of valid candidates within the
+//     second radius (the reference's output row 12, for radius outliers).
+// Batch axis: rows are [batch, n] and r2 is [batch, 2] (each scan's squared
+// moment radius and squared second radius, the reference's per-scan SMEM
+// table, pallas_window.py:461-467); the
 // grid is (n / 128, batch) and each element's window stops at its own row
 // ends, so no window reaches into the neighbouring scan. This is the
 // reference's custom_vmap rule (_make_window_stats) as a grid dimension.
@@ -35,12 +41,13 @@
 // row, 5 KB at wb=1 and 25 KB at wb=7. One thread per query walks the
 // window from shared memory; the k smallest keys live in a register array
 // (sorted insertion, MAXK >= k slots, fully unrolled), so nothing but the
-// window and the outputs touch device memory. The moment and csel distance
-// sums accumulate in double, which makes them independent of the order of
-// addition to float rounding. Bound: the per-thread compare-and-insert work
-// (span x MAXK integer min/max for the top-k, plus up to 3 more window walks
-// for csel), not bytes: the whole pass reads 13 bytes and writes 48 bytes
-// per row.
+// window and the outputs touch device memory. The second-radius count is
+// one compare per candidate in the same walk. The moment and csel/bisect
+// distance sums accumulate in double, which makes them independent of the
+// order of addition to float rounding. Bound: the per-thread compare work
+// (span x MAXK integer min/max for the top-k; 3 more window walks for
+// csel, 14 for bisect), not bytes: the whole pass reads 13 bytes and writes
+// at most 52 bytes per row.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,6 +58,7 @@ constexpr float kHalfBig = 5e29f;             // the reference's _BIG / 2
 constexpr uint32_t kInvalidKey = 0x7F800000u;  // +inf: after every finite d2
 constexpr uint32_t kTrunc = ~2047u;
 constexpr int kCselIters = 2;
+constexpr int kBisectIters = 13;
 
 __device__ __forceinline__ float trunc_d2(float d2) {
   return __uint_as_float(__float_as_uint(d2) & kTrunc);
@@ -66,15 +74,20 @@ __device__ __forceinline__ void topk_insert(uint32_t (&top)[MAXK], uint32_t v) {
   }
 }
 
-template <int MAXK>
+// KMODE (0 sweep, 1 csel, 2 bisect) and COUNT2 (the second radius's count
+// on or off) are template parameters: each instantiation carries only its
+// own mode's state, which keeps the csel instantiation of the production
+// path at the registers it had before the other modes were added (a
+// runtime mode switch cost 36 more registers and one block per SM).
+template <int MAXK, int KMODE, bool COUNT2>
 __global__ void __launch_bounds__(kB)
 window_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
                     const float* __restrict__ z,
                     const uint8_t* __restrict__ valid,
                     const float* __restrict__ r2_ptr,
                     float* __restrict__ mean_out, float* __restrict__ cnt_out,
-                    float* __restrict__ mom_out, int n, int k, int wb,
-                    int direction, int kmode, int moments_on) {
+                    float* __restrict__ mom_out, float* __restrict__ cnt2_out,
+                    int n, int k, int wb, int direction, int moments_on) {
   extern __shared__ float smem[];
   __shared__ float red[3][kB];
   const int span = wb > 0 ? (2 * wb + 1) * kB : 2 * kB;
@@ -93,6 +106,7 @@ window_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
   mean_out += elem * n;
   cnt_out += elem * n;
   mom_out += elem * 10 * n;
+  if (COUNT2) cnt2_out += elem * n;
 
   for (int r = t; r < span; r += kB) {
     const int g = start + r;
@@ -139,11 +153,14 @@ window_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
   __syncthreads();
 
   const float qx = sx[qoff + t], qy = sy[qoff + t], qz = sz[qoff + t];
-  const float r2 = r2_ptr[elem];
-  const bool csel = kmode == 1;
-  // csel selects its threshold among the own block's rows only
+  const float r2 = r2_ptr[2 * elem];
+  const float r2b = r2_ptr[2 * elem + 1];
+  constexpr bool csel = KMODE == 1;
+  constexpr bool bisect = KMODE == 2;
+  // the top-k runs over the whole window (sweep), the own block (csel) or
+  // nothing (bisect)
   const int sel_lo = csel ? qoff : 0;
-  const int sel_hi = csel ? qoff + kB : span;
+  const int sel_hi = bisect ? 0 : (csel ? qoff + kB : span);
 
   // sums of up to 1920 candidates accumulate in double: the result is then
   // (all but surely) the correctly rounded float sum whatever the order, so
@@ -154,7 +171,10 @@ window_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
   uint32_t top[MAXK];
 #pragma unroll
   for (int j = 0; j < MAXK; ++j) top[j] = kInvalidKey;
-  float hi_full = 0.0f;
+  float hi_full = 0.0f;  // the window's max valid d2
+  float hi_own = 0.0f;   // the own block's max valid d2 (bisect)
+  int n_own = 0;         // the own block's valid rows (bisect)
+  int cnt2 = 0;
 
   for (int r = 0; r < span; ++r) {
     if (!sv[r]) continue;
@@ -162,6 +182,7 @@ window_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
     const float dx = cx - qx, dy = cy - qy, dz = cz - qz;
     const float d2 = dx * dx + dy * dy + dz * dz;
     hi_full = fmaxf(hi_full, d2);
+    if (COUNT2) cnt2 += d2 <= r2b ? 1 : 0;
     if (moments_on && d2 <= r2) {
       m[0] += 1.0;
       m[1] += cx;
@@ -174,6 +195,10 @@ window_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
       m[8] += cx * cz;
       m[9] += cy * cz;
     }
+    if (bisect && r >= qoff && r < qoff + kB) {
+      hi_own = fmaxf(hi_own, d2);
+      ++n_own;
+    }
     if (r >= sel_lo && r < sel_hi) {
       const uint32_t key = (__float_as_uint(d2) & kTrunc) | (uint32_t)r;
       if (key < top[MAXK - 1]) topk_insert<MAXK>(top, key);
@@ -182,7 +207,7 @@ window_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
 
   const float kf = (float)k;
   float mean, cnt;
-  if (!csel) {
+  if (KMODE == 0) {
     float acc = 0.0f, hits = 0.0f;
 #pragma unroll
     for (int j = 0; j < MAXK; ++j) {
@@ -196,21 +221,32 @@ window_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
     mean = acc / fmaxf(hits, 1.0f);
     cnt = hits;
   } else {
-    uint32_t kth = kInvalidKey;
+    // threshold select: narrow t until count(d2 <= t) ~= k, then one
+    // masked sum with the at-threshold correction. csel compares the
+    // truncated d2 (as its own-block k-th is truncated), bisect the
+    // untruncated one.
+    bool sparse = false;
+    float lo = 0.0f, hi;
+    constexpr int iters = csel ? kCselIters : kBisectIters;
+    if (csel) {
+      uint32_t kth = kInvalidKey;
 #pragma unroll
-    for (int j = 0; j < MAXK; ++j) {
-      if (j == k - 1) kth = top[j];
+      for (int j = 0; j < MAXK; ++j) {
+        if (j == k - 1) kth = top[j];
+      }
+      sparse = __uint_as_float(kth) >= kHalfBig;
+      hi = sparse ? hi_full : __uint_as_float(kth & kTrunc);
+    } else {
+      hi = n_own >= k ? hi_own : hi_full;
     }
-    const bool sparse = __uint_as_float(kth) >= kHalfBig;
-    float lo = 0.0f;
-    float hi = sparse ? hi_full : __uint_as_float(kth & kTrunc);
-    for (int it = 0; it < kCselIters; ++it) {
+    for (int it = 0; it < iters; ++it) {
       const float mid = 0.5f * (lo + hi);
       int c = 0;
       for (int r = 0; r < span; ++r) {
         if (!sv[r]) continue;
         const float dx = sx[r] - qx, dy = sy[r] - qy, dz = sz[r] - qz;
-        c += trunc_d2(dx * dx + dy * dy + dz * dz) <= mid ? 1 : 0;
+        const float d2 = dx * dx + dy * dy + dz * dz;
+        c += (csel ? trunc_d2(d2) : d2) <= mid ? 1 : 0;
       }
       const bool enough = c >= k;
       lo = enough ? lo : mid;
@@ -222,7 +258,7 @@ window_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
       if (!sv[r]) continue;
       const float dx = sx[r] - qx, dy = sy[r] - qy, dz = sz[r] - qz;
       const float d2 = dx * dx + dy * dy + dz * dz;
-      if (trunc_d2(d2) <= hi) {
+      if ((csel ? trunc_d2(d2) : d2) <= hi) {
         ++inside;
         sum_d += sqrtf(fmaxf(d2, 0.0f));
       }
@@ -244,30 +280,66 @@ window_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
   cnt_out[g] = cnt;
 #pragma unroll
   for (int i = 0; i < 10; ++i) mom_out[(size_t)i * n + g] = (float)m[i];
+  if (COUNT2) cnt2_out[g] = (float)cnt2;
+}
+
+template <int MAXK, int KMODE, bool COUNT2>
+cudaError_t launch(const float* x, const float* y, const float* z,
+                   const uint8_t* valid, const float* r2, float* mean,
+                   float* cnt, float* mom, float* cnt2, int batch, int n,
+                   int k, int wb, int direction, int moments,
+                   cudaStream_t stream) {
+  const int span = wb > 0 ? (2 * wb + 1) * kB : 2 * kB;
+  const size_t smem = (size_t)span * (3 * sizeof(float) + 1);
+  window_stats_kernel<MAXK, KMODE, COUNT2><<<dim3(n / kB, batch), kB, smem, stream>>>(
+      x, y, z, valid, r2, mean, cnt, mom, cnt2, n, k, wb, direction, moments);
+  return cudaGetLastError();
+}
+
+template <int MAXK, int KMODE>
+cudaError_t launch_count2(const float* x, const float* y, const float* z,
+                          const uint8_t* valid, const float* r2, float* mean,
+                          float* cnt, float* mom, float* cnt2, int batch,
+                          int n, int k, int wb, int direction, int moments,
+                          cudaStream_t stream) {
+  if (cnt2 != nullptr) {
+    return launch<MAXK, KMODE, true>(x, y, z, valid, r2, mean, cnt, mom, cnt2,
+                                     batch, n, k, wb, direction, moments, stream);
+  }
+  return launch<MAXK, KMODE, false>(x, y, z, valid, r2, mean, cnt, mom, cnt2,
+                                    batch, n, k, wb, direction, moments, stream);
 }
 
 template <int MAXK>
-cudaError_t launch(const float* x, const float* y, const float* z,
-                   const uint8_t* valid, const float* r2, float* mean,
-                   float* cnt, float* mom, int batch, int n, int k, int wb,
-                   int direction, int kmode, int moments, cudaStream_t stream) {
-  const int span = wb > 0 ? (2 * wb + 1) * kB : 2 * kB;
-  const size_t smem = (size_t)span * (3 * sizeof(float) + 1);
-  window_stats_kernel<MAXK><<<dim3(n / kB, batch), kB, smem, stream>>>(
-      x, y, z, valid, r2, mean, cnt, mom, n, k, wb, direction, kmode, moments);
-  return cudaGetLastError();
+cudaError_t launch_mode(const float* x, const float* y, const float* z,
+                        const uint8_t* valid, const float* r2, float* mean,
+                        float* cnt, float* mom, float* cnt2, int batch, int n,
+                        int k, int wb, int direction, int kmode, int moments,
+                        cudaStream_t stream) {
+  switch (kmode) {
+    case 0:
+      return launch_count2<MAXK, 0>(x, y, z, valid, r2, mean, cnt, mom, cnt2,
+                                    batch, n, k, wb, direction, moments, stream);
+    case 1:
+      return launch_count2<MAXK, 1>(x, y, z, valid, r2, mean, cnt, mom, cnt2,
+                                    batch, n, k, wb, direction, moments, stream);
+    default:
+      return launch_count2<MAXK, 2>(x, y, z, valid, r2, mean, cnt, mom, cnt2,
+                                    batch, n, k, wb, direction, moments, stream);
+  }
 }
 
 }  // namespace
 
-// Rows x, y, z, valid, mean, cnt [batch, n], mom [batch, 10, n]; r2
-// float32[batch] on the device (each scan's squared moment radius);
-// n % 128 == 0, 1 <= k <= 64, 0 <= wb <= 7.
+// Rows x, y, z, valid, mean, cnt [batch, n], mom [batch, 10, n], cnt2
+// [batch, n] or null (no second-radius count); r2 float32[batch, 2] on the
+// device (each scan's squared moment radius and squared second radius);
+// n % 128 == 0, 1 <= k <= 64, 0 <= wb <= 7, kmode 0 sweep, 1 csel, 2 bisect.
 extern "C" int apc_window_stats(const void* x, const void* y, const void* z,
                                 const void* valid, const void* r2, void* mean,
-                                void* cnt, void* mom, int batch, int n, int k,
-                                int wb, int direction, int kmode, int moments,
-                                void* stream) {
+                                void* cnt, void* mom, void* cnt2, int batch,
+                                int n, int k, int wb, int direction, int kmode,
+                                int moments, void* stream) {
   const float* fx = static_cast<const float*>(x);
   const float* fy = static_cast<const float*>(y);
   const float* fz = static_cast<const float*>(z);
@@ -276,17 +348,18 @@ extern "C" int apc_window_stats(const void* x, const void* y, const void* z,
   float* fm = static_cast<float*>(mean);
   float* fc = static_cast<float*>(cnt);
   float* fo = static_cast<float*>(mom);
+  float* fc2 = static_cast<float*>(cnt2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n < kB || batch < 1) return static_cast<int>(cudaGetLastError());
   cudaError_t err;
   if (k <= 8) {
-    err = launch<8>(fx, fy, fz, v, fr2, fm, fc, fo, batch, n, k, wb, direction, kmode, moments, s);
+    err = launch_mode<8>(fx, fy, fz, v, fr2, fm, fc, fo, fc2, batch, n, k, wb, direction, kmode, moments, s);
   } else if (k <= 16) {
-    err = launch<16>(fx, fy, fz, v, fr2, fm, fc, fo, batch, n, k, wb, direction, kmode, moments, s);
+    err = launch_mode<16>(fx, fy, fz, v, fr2, fm, fc, fo, fc2, batch, n, k, wb, direction, kmode, moments, s);
   } else if (k <= 32) {
-    err = launch<32>(fx, fy, fz, v, fr2, fm, fc, fo, batch, n, k, wb, direction, kmode, moments, s);
+    err = launch_mode<32>(fx, fy, fz, v, fr2, fm, fc, fo, fc2, batch, n, k, wb, direction, kmode, moments, s);
   } else {
-    err = launch<64>(fx, fy, fz, v, fr2, fm, fc, fo, batch, n, k, wb, direction, kmode, moments, s);
+    err = launch_mode<64>(fx, fy, fz, v, fr2, fm, fc, fo, fc2, batch, n, k, wb, direction, kmode, moments, s);
   }
   return static_cast<int>(err);
 }

@@ -6,14 +6,16 @@ The configuration surface is the reference's, unchanged:
 ``settings_from_config`` and the named presets (``models/presets.py``).
 ``PipelineParams`` holds tensors on one device (``cuda:0`` unless given).
 
-The port runs the stages of the production profile
-(``PRODUCTION_128K_CONFIG``): duplicates fused into the voxel sort (or as
-their own stage in profile mode), non-finite, the SE(3) transforms, crop,
-RANSAC ground on the raw cloud, pre-voxel stream compaction (K1), the
-curve-ordered voxel stage (K2), and the presorted fused two-pass
-Hilbert-window neighbourhood (K3) with the mean+std outlier threshold of
-each scan. Settings that need a stage the port does not have yet raise
-``NotImplementedError`` naming its ROADMAP item.
+The port runs duplicates fused into the voxel sort (or as their own
+stage), non-finite, the SE(3) transforms, crop, RANSAC ground on the raw
+cloud, pre-voxel stream compaction (K1), the voxel stage (K2, curve-ordered
+when the fused neighbourhood consumes it), the post-downsample shrink, the
+fused multi-pass Hilbert-window neighbourhood (K3) with the mean+std
+outlier threshold of each scan and the radius-outlier count riding the
+same sweep, and the standalone statistical outlier, radius outlier and
+normal stages (exact kNN or the window). Settings that need a stage the
+port does not have yet raise ``NotImplementedError`` naming its ROADMAP
+item.
 
 Every stage takes one scan or a batch of scans (a leading axis on every
 tensor of the buffer, ``core.stack_buffers``), so the same runner serves
@@ -31,6 +33,7 @@ import torch
 
 from ..core.scan import ScanBuffer, resolve_device
 from .. import ops
+from ..ops.outliers import outlier_keep
 from ..ops.window import fused_neighborhood_stats_reordered
 
 
@@ -326,35 +329,13 @@ def _check_supported(settings: "PipelineSettings") -> None:
         if settings.ground_method != "ransac":
             raise _not_ported("height ground removal", "item 3")
         if not settings.ground_before_voxel:
-            raise _not_ported("ground removal after the voxel stage", "item 8")
+            raise _not_ported(
+                "ground removal after the voxel stage or before the neighbourhood", "item 8"
+            )
         if settings.ground_score_subsample:
             raise _not_ported("remove_ground.score_subsample", "item 3")
-    if settings.knn_method == "exact":
-        raise _not_ported("knn_method='exact'", "item 6 (ops/knn.py)")
-    if settings.remove_radius_outliers:
-        raise _not_ported("radius outlier removal", "item 8")
     if settings.voxel_compact_keys == "wide":
         raise _not_ported("the 'wide' compact voxel keys", "item 5")
-    fuse = (
-        settings.fuse_neighborhood
-        and settings.remove_statistical_outliers
-        and settings.estimate_normals
-    )
-    if (settings.remove_statistical_outliers or settings.estimate_normals) and not fuse:
-        raise _not_ported("the unfused outlier and normal stages", "item 8")
-    if fuse:
-        if not (settings.voxel_downsample and settings.voxel_curve_order):
-            raise _not_ported("the non-presorted fused neighbourhood", "item 8")
-        if settings.normals_merge_passes:
-            raise _not_ported("pass-merged normals (normals_merge_passes)", "item 8")
-        if settings.knn_kmode == "bisect":
-            raise _not_ported("knn_kmode='bisect'", "kernels queue, K3 modes")
-    if (
-        settings.post_downsample_capacity
-        and settings.voxel_downsample
-        and not fuse
-    ):
-        raise _not_ported("the post-downsample shrink (ops.subsample_to)", "item 4")
 
 
 def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
@@ -362,7 +343,8 @@ def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
     -> (buf, aux))``; ``aux`` is the ground plane (float32[..., 4]) or None.
 
     ``separate_stages=True`` (profile mode) keeps duplicate removal out of
-    the voxel sort, so that it runs, and is timed, as its own stage.
+    the voxel sort and the radius outliers out of the fused neighbourhood,
+    so that they run, and are timed, as stages of their own.
     """
     _check_supported(settings)
     stages = []
@@ -400,7 +382,7 @@ def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
             lambda b, p, g, u: (ops.crop_box(b, p.roi_min, p.roi_max, p.crop_invert), None),
         ))
 
-    if settings.remove_ground:
+    if settings.remove_ground:  # on the raw cloud (ground_before_voxel)
         def ground(b, p, g, u):
             return ops.remove_ground(
                 b, g, p.distance_threshold, settings.ransac_n,
@@ -408,6 +390,21 @@ def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
             )
 
         stages.append(("ground", ground))
+
+    # the fused sweep serves statistical outliers with at least one more
+    # window consumer: normals or radius outliers (K3 gives the moments and
+    # the in-radius2 count in the same pass)
+    fuse = (
+        settings.fuse_neighborhood
+        and settings.remove_statistical_outliers
+        and (settings.estimate_normals or settings.remove_radius_outliers)
+        and settings.knn_method != "exact"
+    )
+    # the curve-ordered voxel output is front-compacted and in pass-0
+    # curve order: the neighbourhood's pass-0 sort and the shrink become a
+    # prefix slice
+    presorted = fuse and settings.voxel_curve_order and settings.voxel_downsample
+    cap = settings.post_downsample_capacity
 
     if settings.pre_voxel_compact_capacity > 0 and settings.voxel_downsample:
         pcap = settings.pre_voxel_compact_capacity
@@ -419,45 +416,111 @@ def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
 
         stages.append(("pre_compact", pre_compact))
 
-    fuse = settings.remove_statistical_outliers and settings.estimate_normals
     if settings.voxel_downsample:
         stages.append((
             "voxel",
             lambda b, p, g, u: (
                 ops.voxel_downsample(
-                    b, p.voxel_size, dedup_exact=fuse_dedup, curve_order=fuse,
-                    compact_keys=settings.voxel_compact_keys if fuse else False,
+                    b, p.voxel_size, dedup_exact=fuse_dedup, curve_order=presorted,
+                    compact_keys=settings.voxel_compact_keys if presorted else False,
                 ),
                 None,
             ),
         ))
+        if cap > 0 and not presorted:  # presorted: deferred into the prefix slice
+            def shrink(b, p, g, u):
+                if cap >= b.capacity:  # nothing to shrink
+                    return b, None
+                # the voxel output is front-compacted: a prefix slice keeps
+                # every voxel unless they overflow the bucket, and then the
+                # unbiased hash subsample runs (a prefix in voxel-key order
+                # would keep one slab); one host read decides for a batch
+                live = b.mask.sum(-1)
+                front = ops.shrink_front(b, cap)
+                if int(live.max()) <= cap:
+                    return front, None
+                sub = ops.subsample_to(b, cap)
+                return _select_scans(live > cap, sub, front), None
+
+            stages.append(("shrink", shrink))
+
+    # radius outliers ride the fused sweep (K3's in-radius2 count); profile
+    # mode keeps their standalone stage so that its timing key is emitted
+    fuse_radius = fuse and settings.remove_radius_outliers and not separate_stages
 
     if fuse:
-        cap = settings.post_downsample_capacity
-
         def neighborhood(b, p, g, u):
-            pos, valid, attrs, mean_d, normals, _count = (
-                fused_neighborhood_stats_reordered(
-                    b.positions, b.mask, dict(b.attributes),
-                    k=settings.nb_neighbors, radius=p.search_radius,
-                    window_blocks=settings.window_blocks,
-                    passes=settings.neighborhood_passes,
-                    kmode=settings.knn_kmode,
-                    shrink_to=cap if cap < b.capacity else 0,
-                )
+            out = fused_neighborhood_stats_reordered(
+                b.positions, b.mask, dict(b.attributes),
+                k=settings.nb_neighbors, radius=p.search_radius,
+                window_blocks=settings.window_blocks,
+                passes=settings.neighborhood_passes,
+                kmode=settings.knn_kmode,
+                shrink_to=cap if presorted and 0 < cap < b.capacity else 0,
+                radius2=p.radius_search_radius if fuse_radius else None,
+                presorted=presorted,
+                entries_merge=settings.normals_merge_passes,
+                # the stage thresholds on the kNN mean alone
+                carry_count=False,
             )
-            # outlier threshold of each scan (mean + std_ratio * std of its
-            # live means)
-            n_live = torch.clamp(valid.sum(-1, keepdim=True), min=1)
-            zero = torch.zeros((), dtype=mean_d.dtype, device=mean_d.device)
-            mu = torch.where(valid, mean_d, zero).sum(-1, keepdim=True) / n_live
-            var = torch.where(valid, (mean_d - mu) ** 2, zero).sum(-1, keepdim=True) / n_live
-            keep = valid & (mean_d <= mu + p.std_ratio * torch.sqrt(var))
-            attrs["normals"] = normals
+            pos, valid, attrs, mean_d, normals = out[:5]
+            keep = valid & outlier_keep(mean_d, valid, p.std_ratio)
+            if fuse_radius:
+                keep = keep & (out[6] >= p.radius_nb_points)
+            if settings.estimate_normals:
+                attrs["normals"] = normals
             return ScanBuffer(positions=pos, mask=keep, attributes=attrs), None
 
         stages.append(("neighborhood", neighborhood))
+
+    standalone = dict(
+        method=settings.knn_method, window_blocks=settings.window_blocks,
+        passes=settings.neighborhood_passes,
+    )
+    if settings.remove_statistical_outliers and not fuse:
+        stages.append((
+            "outliers",
+            lambda b, p, g, u: (
+                ops.remove_statistical_outliers(
+                    b, settings.nb_neighbors, p.std_ratio, kmode=settings.knn_kmode,
+                    **standalone,
+                ),
+                None,
+            ),
+        ))
+    if settings.remove_radius_outliers and not fuse_radius:
+        stages.append((
+            "radius_outliers",
+            lambda b, p, g, u: (
+                ops.remove_radius_outliers(
+                    b, p.radius_nb_points, p.radius_search_radius, **standalone
+                ),
+                None,
+            ),
+        ))
+    if settings.estimate_normals and not fuse:
+        stages.append((
+            "normals",
+            lambda b, p, g, u: (
+                ops.estimate_normals(b, p.search_radius, settings.max_neighbors, **standalone),
+                None,
+            ),
+        ))
     return stages
+
+
+def _select_scans(pick: torch.Tensor, a: ScanBuffer, b: ScanBuffer) -> ScanBuffer:
+    """Scan by scan, ``a`` where ``pick`` (bool of the batch shape) else
+    ``b``: the reference's ``lax.cond`` under ``vmap``."""
+
+    def sel(x, y):
+        return torch.where(pick.reshape(pick.shape + (1,) * (x.dim() - pick.dim())), x, y)
+
+    return ScanBuffer(
+        positions=sel(a.positions, b.positions),
+        mask=sel(a.mask, b.mask),
+        attributes={k: sel(v, b.attributes[k]) for k, v in a.attributes.items()},
+    )
 
 
 def pipeline_runner(settings: PipelineSettings):

@@ -59,9 +59,9 @@ _SIGNATURES = {
     "apc_masked_compact": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # values, run_start, out, scratch, batch, c, n, stream
     "apc_segmented_sums": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # x, y, z, valid, r2, mean, cnt, mom, batch, n, k, wb, direction,
-    # kmode, moments, stream
-    "apc_window_stats": (_P, _P, _P, _P, _P, _P, _P, _P,
+    # x, y, z, valid, r2, mean, cnt, mom, cnt2, batch, n, k, wb,
+    # direction, kmode, moments, stream
+    "apc_window_stats": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _P),
 }
 

@@ -1,9 +1,10 @@
 """Mask compaction: move live points to the front of a (smaller) buffer.
 
 Port of ``autodriver_pointcloud_preprocessor_tpu/ops/compact.py``
-(``compact_to``, ``shrink_front``, ``stream_compact_to``). The order of
-surviving points is kept. Buffers may carry a batch axis; each scan
-compacts on its own. ``subsample_to`` is not ported yet (ROADMAP item 4).
+(``compact_to``, ``shrink_front``, ``stream_compact_to``, ``subsample_to``).
+The first three keep the order of surviving points; ``subsample_to`` keeps
+an unbiased hash-priority subset. Buffers may carry a batch axis; each scan
+compacts on its own.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from .segmean import masked_compact
 
 __all__ = [
     "compact_to", "compaction_order", "gather_columns", "shrink_front", "stream_compact_to",
+    "subsample_to",
 ]
 
 _MAX_ROWS = 8  # rows per K1 launch
@@ -60,8 +62,32 @@ def shrink_front(buf: ScanBuffer, capacity: int) -> ScanBuffer:
         raise ValueError(f"shrink_front grows capacity {buf.capacity} -> {capacity}")
     return ScanBuffer(
         positions=buf.positions[..., :capacity],
-        mask=buf.mask[:capacity],
+        mask=buf.mask[..., :capacity],
         attributes={k: v[..., :capacity] for k, v in buf.attributes.items()},
+    )
+
+
+def subsample_to(buf: ScanBuffer, capacity: int) -> ScanBuffer:
+    """Cap to ``capacity`` keeping an unbiased subset of live points.
+
+    Each slot gets a fixed pseudo-random priority, the multiplicative hash
+    ``(slot * -1640531527) & 0x7FFFFFFF`` of its index (the reference's
+    int32 wraparound product, computed in int64 and masked), invalid slots
+    ``0x7FFFFFFF``; the ``capacity`` best priorities survive, live points
+    first, in hash order. Valid slots' priorities are distinct below 2**31
+    slots, so the live prefix equals the reference's; the sort here is
+    stable where the reference's is not, which fixes the order of the
+    invalid tail.
+    """
+    if capacity > buf.capacity:
+        raise ValueError(f"subsample_to grows capacity {buf.capacity} -> {capacity}")
+    slot = torch.arange(buf.capacity, dtype=torch.int64, device=buf.device)
+    pri = torch.where(buf.mask, (slot * -1640531527) & 0x7FFFFFFF, 0x7FFFFFFF)
+    idx = torch.sort(pri, dim=-1, stable=True).indices[..., :capacity]
+    return ScanBuffer(
+        positions=gather_columns(buf.positions, idx),
+        mask=buf.mask.gather(-1, idx),
+        attributes={k: gather_columns(v, idx) for k, v in buf.attributes.items()},
     )
 
 

@@ -5,6 +5,9 @@ Port of the eigensolvers in
 trigonometric closed form for the smallest eigenvalue, then the largest
 cross product of two rows of (A - lambda I). Both the RANSAC refit and
 the normals use it. Degenerate inputs fall back to (0, 0, 1).
+``normals_from_entries`` is the reference's ``ops/normals.py
+_normals_from_entries``, kept here so that the window ops and the normal
+filter share it without importing each other.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ import math
 
 import torch
 
-__all__ = ["smallest_eigenvector_sym3x3", "smallest_eigvec_entries"]
+__all__ = ["normals_from_entries", "smallest_eigenvector_sym3x3", "smallest_eigvec_entries"]
 
 
 def _smallest_eigenvalue(a00, a11, a22, a01, a02, a12):
@@ -88,3 +91,22 @@ def smallest_eigenvector_sym3x3(mats: torch.Tensor):
     vx, vy, vz = smallest_eigvec_entries(*entries)
     lam, _ = _smallest_eigenvalue(*entries)
     return torch.stack([vx, vy, vz], dim=-1), lam
+
+
+def normals_from_entries(a00, a11, a22, a01, a02, a12, count) -> torch.Tensor:
+    """float32[..., 3, N] unit normals from the six covariance entries
+    (each [..., N]): the smallest eigenvector, signed so that its
+    largest-magnitude component is positive; (0, 0, 1) where fewer than 3
+    neighbours were counted."""
+    nx, ny, nz = smallest_eigvec_entries(a00, a11, a22, a01, a02, a12)
+    ax, ay, az = torch.abs(nx), torch.abs(ny), torch.abs(nz)
+    lead = torch.where((ax >= ay) & (ax >= az), nx, torch.where(ay >= az, ny, nz))
+    flip = torch.where(lead < 0, -1.0, 1.0)
+    nx, ny, nz = nx * flip, ny * flip, nz * flip
+    ok = count >= 3
+    zero = torch.zeros_like(nx)
+    return torch.stack([
+        torch.where(ok, nx, zero),
+        torch.where(ok, ny, zero),
+        torch.where(ok, nz, torch.ones_like(nz)),
+    ], dim=-2)

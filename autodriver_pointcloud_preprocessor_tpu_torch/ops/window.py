@@ -7,15 +7,18 @@ curve takes its neighbourhood statistics over a window of nearby blocks
 origin-shifted curves are min-merged, because a window only ever
 overestimates the kNN distance.
 
-Ported: the curve codes, the per-pass curve sort, and the fused
-neighbourhood of the presorted pipeline mode
-(``fused_neighborhood_stats_reordered`` with ``presorted=True`` and
-normals from pass 0). Not ported yet (ROADMAP item 8): the standalone
-window ops, the unsorting ``fused_neighborhood_stats``, pass-merged
-normals, the second radius, and the non-presorted entry.
+The reference's surface apart from its XLA fallback: the curve codes, the
+standalone window ops (``window_mean_knn_dist``, ``window_normal_stats``,
+one sort, K3 and one unsort a pass), and the fused neighbourhood in its
+unsorting (``fused_neighborhood_stats``) and reordering
+(``fused_neighborhood_stats_reordered``) forms, presorted or not, with
+the second radius's count, pass-merged or pass-0 normals, and the
+capacity shrink. There is one route: K3 on the card, its plain version on
+the CPU. Not ported: the quantization ``bounds`` of the sharded callers
+(ROADMAP item 13) and the Morton codes (item 5).
 
-Sorts here are stable; the reference's pass-1 re-sort is not, so the two
-order ties (distinct points in one curve cell) differently.
+Sorts here are stable; the reference's re-sorts of later passes are not,
+so the two order ties (distinct points in one curve cell) differently.
 
 Everything takes an optional leading batch axis (positions [B, 3, N], mask
 [B, N]): bounds, sorts and windows are per scan, and each kernel launch
@@ -27,13 +30,16 @@ from typing import Sequence
 
 import torch
 
-from .normals import _normals_from_entries
+from .linalg import normals_from_entries as _normals_from_entries
 from .window_stats import window_stats
 
 __all__ = [
+    "fused_neighborhood_stats",
     "fused_neighborhood_stats_reordered",
     "hilbert_cell_codes",
     "hilbert_codes",
+    "window_mean_knn_dist",
+    "window_normal_stats",
 ]
 
 _BITS = 10  # per-axis quantization bits (30-bit curve index)
@@ -124,20 +130,32 @@ def _pass_shift(pass_idx: int) -> float:
     return float(min(128 * pass_idx, 512))
 
 
+def _curve_order(positions, mask, pass_idx: int):
+    """Stable curve sort for pass ``pass_idx``: (sorted codes, order), the
+    order being each sorted row's input index."""
+    perm = _PASS_PERMS[pass_idx % len(_PASS_PERMS)]
+    codes = hilbert_codes(positions[..., list(perm), :], mask, _pass_shift(pass_idx))
+    return torch.sort(codes, dim=-1, stable=True)
+
+
 def _sorted_rows(positions, mask, pass_idx: int, extra=()):
     """Stable curve sort of x/y/z (+ ``extra`` rows) for pass ``pass_idx``.
 
     Returns (sx, sy, sz, sv, *extra) in curve order; validity comes from
     the sorted code (invalid rows carry the sentinel).
     """
-    perm = _PASS_PERMS[pass_idx % len(_PASS_PERMS)]
-    codes = hilbert_codes(positions[..., list(perm), :], mask, _pass_shift(pass_idx))
-    codes, order = torch.sort(codes, dim=-1, stable=True)
+    codes, order = _curve_order(positions, mask, pass_idx)
     return (
         *(positions[..., c, :].gather(-1, order) for c in range(3)),
         codes < _SENTINEL,
         *(r.gather(-1, order) for r in extra),
     )
+
+
+def _unsort(order, rows):
+    """Rows in curve order -> input order, ``order`` being the sort's
+    input index per sorted row (a permutation along the last axis)."""
+    return [torch.empty_like(r).scatter_(-1, order, r) for r in rows]
 
 
 def _entries_from_moments(mom):
@@ -197,9 +215,10 @@ def _oct_decode(u, v):
 
 
 def _thin_sort_slice(px, py, pz, m, carry, shrink_to: int):
-    """Overflow path of the presorted shrink: a deterministic binomial
-    thin (hash of the slot index) to ~``shrink_to`` live points per scan,
-    the pass-0 curve sort, and a prefix slice."""
+    """The shrink's thin: a deterministic binomial thin (hash of the slot
+    index) to ~``shrink_to`` live points per scan when more are live, the
+    pass-0 curve sort, and a prefix slice. The entry of a non-presorted
+    shrink, and the overflow path of the presorted one."""
     n = px.shape[-1]
     n_live = m.sum(-1, keepdim=True)
     slot = torch.arange(n, dtype=torch.int64, device=px.device)
@@ -215,64 +234,211 @@ def _thin_sort_slice(px, py, pz, m, carry, shrink_to: int):
     return [r[..., :shrink_to] for r in rows]
 
 
-def _fused_passes(positions, mask, carry, *, k, radius, window_blocks, passes,
-                  kmode, shrink_to=0):
-    """Sort-chained multi-pass neighbourhood of the presorted pipeline mode.
+def _masked(v, mask):
+    """``v`` where ``mask``, else 0."""
+    return torch.where(mask, v, torch.zeros((), dtype=v.dtype, device=v.device))
 
-    The caller promises live points front-compacted and in pass-0 curve
-    order (the curve-ordered voxel stage), so pass 0 needs no sort and
-    ``shrink_to`` is a prefix slice. When more than ``shrink_to`` points
-    are live, a binomial thin and a pass-0 sort run instead; deciding that
-    reads the live counts on the host (one device sync for a whole batch).
-    When any scan of a batch overflows, the thin runs for the batch and
-    each scan takes its own branch by a select, as the reference's
-    ``lax.cond`` does under ``vmap``. Each later pass
-    re-sorts the rows, the ``carry`` rows and the pass statistics along
-    its own curve. Normals and the in-radius count come from pass 0 (the
-    normal rides the re-sorts as one octahedral-packed int32 row); the kNN
-    means are min-merged.
 
-    Returns ``(sx, sy, sz, sv, carry_rows, mean, count, nx, ny, nz)`` in
-    the last pass's curve order.
-    """
+def _wb_per_pass(window_blocks, passes: int) -> tuple:
+    """``window_blocks`` (an int or a per-pass tuple) -> one per pass."""
     wbs = (window_blocks,) * passes if isinstance(window_blocks, int) else tuple(window_blocks)
     if len(wbs) != passes:
-        raise ValueError(f"window_blocks {wbs} does not match passes={passes}")
+        raise ValueError(f"per-pass window_blocks tuple length {len(wbs)} != passes {passes}")
+    return wbs
+
+
+def _kernel_pass(positions, mask, pass_idx, k, radius, window_blocks,
+                 kmode="sweep", moments=True):
+    """One curve pass through K3: the reference's ``_pallas_pass``.
+
+    A stable curve sort whose order is the carried index, K3, and the
+    unsort. Returns (mean_knn [..., N], cov_entries [..., 6, N], count
+    [..., N]) in input order; count is the in-radius count (zero, like the
+    entries, with ``moments=False``).
+    """
+    codes, order = _curve_order(positions, mask, pass_idx)
+    mean_s, _cnt, mom_s = window_stats(
+        *(positions[..., c, :].gather(-1, order) for c in range(3)), codes < _SENTINEL,
+        radius, k=k, window_blocks=window_blocks, kmode=kmode, direction=pass_idx % 2,
+        moments=moments,
+    )
+    mean, count, *entry_rows = _unsort(
+        order, (mean_s, mom_s[..., 0, :], *_entries_from_moments(mom_s).unbind(-2))
+    )
+    return mean, torch.stack(entry_rows, dim=-2), count
+
+
+def window_mean_knn_dist(positions, mask, k: int, window_blocks: int | tuple = 2,
+                         passes: int = 2, kmode: str = "sweep") -> torch.Tensor:
+    """Mean distance to the k nearest window candidates (self included),
+    min-merged over ``passes`` curve passes; float32[..., N] in input
+    order, 0 on masked-out rows. Backs statistical outlier removal."""
+    wbs = _wb_per_pass(window_blocks, passes)
+    # no moments, so any radius: a device zero (a host scalar's copy would
+    # synchronise the stream)
+    radius = torch.zeros((), dtype=torch.float32, device=positions.device)
+    best = None
+    for p_i in range(passes):
+        mean, _, _ = _kernel_pass(positions, mask, p_i, k, radius, wbs[p_i], kmode, moments=False)
+        best = mean if best is None else torch.minimum(best, mean)
+    return _masked(best, mask)
+
+
+def window_normal_stats(positions, mask, radius, window_blocks: int | tuple = 2,
+                        passes: int = 2):
+    """In-radius covariance entries over the curve window, per point.
+
+    Returns ``(cov_entries float32[..., 6, N], count float32[..., N])`` in
+    input order: entries (a00, a11, a22, a01, a02, a12) of the centered
+    covariance of the in-radius candidates (self included); each point
+    keeps the pass that found more of them. Count is 0 on masked-out rows.
+    Backs normal estimation and radius outlier removal.
+    """
+    wbs = _wb_per_pass(window_blocks, passes)
+    entries = counts = None
+    for p_i in range(passes):
+        _mean, e2, c2 = _kernel_pass(positions, mask, p_i, 1, radius, wbs[p_i])
+        if entries is None:
+            entries, counts = e2, c2
+        else:
+            better = c2 > counts
+            entries = torch.where(better.unsqueeze(-2), e2, entries)
+            counts = torch.where(better, c2, counts)
+    return entries, _masked(counts, mask)
+
+
+def _fused_passes(positions, mask, carry, *, k, radius, window_blocks, passes,
+                  kmode, shrink_to=0, radius2=None, presorted=False,
+                  entries_merge=True, carry_count=True):
+    """Sort-chained multi-pass neighbourhood: the shared core of the fused
+    ops.
+
+    Entry: with ``presorted`` the caller promises live points
+    front-compacted and in pass-0 curve order (the curve-ordered voxel
+    stage), so pass 0 needs no sort and ``shrink_to`` is a prefix slice;
+    when more than ``shrink_to`` points are live, a binomial thin and a
+    pass-0 sort run instead, which reading the live counts on the host
+    decides (one device sync for a whole batch; when any scan of a batch
+    overflows, each scan takes its own branch by a select, as the
+    reference's ``lax.cond`` does under ``vmap``). Without ``presorted``
+    pass 0 sorts, and with ``shrink_to`` it thins, sorts and slices.
+
+    Each later pass re-sorts the rows, the ``carry`` rows and the
+    statistics along its own curve. The kNN means are min-merged; with
+    ``radius2`` the in-radius2 counts are max-merged (windows only
+    undercount). Normals: with ``entries_merge`` the 6 covariance-entry
+    rows and the in-radius count ride the re-sorts, the higher-count pass
+    wins per point and one eigensolve runs after the merge; without it the
+    normal comes from pass 0 as one octahedral-packed int32 row, later
+    passes skip the moments, and ``carry_count=False`` drops the count row
+    too (the count comes back zero).
+
+    Returns ``(sx, sy, sz, sv, carry_rows, mean, count, normals [..., 3,
+    N], count2 or None)`` in the last pass's curve order.
+    """
+    wbs = _wb_per_pass(window_blocks, passes)
+    use_r2 = radius2 is not None
 
     def one_pass(px, py, pz, pv, direction, wb, moments=True):
-        mean_s, _cnt, mom_s = window_stats(
+        out = window_stats(
             px, py, pz, pv, radius, k=k, window_blocks=wb, kmode=kmode,
-            direction=direction, moments=moments,
+            direction=direction, moments=moments, radius2=radius2,
         )
-        return mean_s, mom_s
+        mom = out[2]
+        return out[0], mom[..., 0, :], _entries_from_moments(mom), out[3] if use_r2 else None
 
     n = positions.shape[-1]
     px, py, pz = (positions[..., c, :] for c in range(3))
-    rows = [px, py, pz, mask, *carry]
-    if shrink_to and shrink_to < n:
-        live = mask.sum(-1)
-        prefix = [r[..., :shrink_to] for r in rows]
-        if int(live.max()) > shrink_to:  # one host read for the batch
-            thin = _thin_sort_slice(px, py, pz, mask, carry, shrink_to)
-            over = (live > shrink_to)[..., None]
-            rows = [torch.where(over, t, p) for t, p in zip(thin, prefix)]
-        else:
-            rows = prefix
+    if presorted:
+        rows = [px, py, pz, mask, *carry]
+        if shrink_to and shrink_to < n:
+            live = mask.sum(-1)
+            prefix = [r[..., :shrink_to] for r in rows]
+            if int(live.max()) > shrink_to:  # one host read for the batch
+                thin = _thin_sort_slice(px, py, pz, mask, carry, shrink_to)
+                over = (live > shrink_to)[..., None]
+                rows = [torch.where(over, t, p) for t, p in zip(thin, prefix)]
+            else:
+                rows = prefix
+    elif shrink_to and shrink_to < n:
+        rows = _thin_sort_slice(px, py, pz, mask, carry, shrink_to)
+    else:
+        rows = _sorted_rows(positions, mask, 0, extra=carry)
     sx, sy, sz, sv, *carry = (r.contiguous() for r in rows)
 
-    mean, mom = one_pass(sx, sy, sz, sv, 0, wbs[0])
-    count = mom[..., 0, :]
-    nrm0 = _normals_from_entries(*_entries_from_moments(mom).unbind(-2), count)
-    stat_n = _oct_pack(*_oct_encode(*nrm0.unbind(-2)))
+    mean, count, ent, cnt2 = one_pass(sx, sy, sz, sv, 0, wbs[0])
+    drop_count = not entries_merge and not carry_count
+    if not entries_merge:
+        # solve pass 0's normals now; one packed row rides the re-sorts
+        nrm0 = _normals_from_entries(*ent.unbind(-2), count)
+        stat_n = _oct_pack(*_oct_encode(*nrm0.unbind(-2)))
     for p_i in range(1, passes):
+        # the statistic rows riding this re-sort, in this order: the mean,
+        # the count, the 6 entries or the packed normal, the count2
+        stats = [mean]
+        stats += [] if drop_count else [count]
+        stats += list(ent.unbind(-2)) if entries_merge else [stat_n]
+        stats += [cnt2] if use_r2 else []
         sx, sy, sz, sv, *rest = _sorted_rows(
-            torch.stack([sx, sy, sz], dim=-2), sv, p_i, extra=(*carry, mean, count, stat_n)
+            torch.stack([sx, sy, sz], dim=-2), sv, p_i, extra=(*carry, *stats)
         )
-        carry, (mean, count, stat_n) = rest[:-3], rest[-3:]
-        m2, _ = one_pass(sx, sy, sz, sv, p_i % 2, wbs[p_i], moments=False)
+        carry, stats = rest[: len(carry)], rest[len(carry) :]
+        mean = stats.pop(0)
+        count = torch.zeros_like(mean) if drop_count else stats.pop(0)
+        if entries_merge:
+            ent = torch.stack(stats[:6], dim=-2)
+            del stats[:6]
+        else:
+            stat_n = stats.pop(0)
+        if use_r2:
+            cnt2 = stats.pop(0)
+        m2, c2, ent2, cnt2b = one_pass(sx, sy, sz, sv, p_i % 2, wbs[p_i], moments=entries_merge)
         mean = torch.minimum(mean, m2)
-    nrm = _oct_decode(*_oct_unpack(stat_n))
-    return (sx, sy, sz, sv, tuple(carry), mean, count, nrm[0], nrm[1], nrm[2])
+        if entries_merge:
+            better = c2 > count
+            ent = torch.where(better.unsqueeze(-2), ent2, ent)
+            count = torch.where(better, c2, count)
+        if use_r2:
+            cnt2 = torch.maximum(cnt2, cnt2b)
+    if entries_merge:
+        nrm = _normals_from_entries(*ent.unbind(-2), count)
+    else:
+        nrm = torch.stack(_oct_decode(*_oct_unpack(stat_n)), dim=-2)
+    return sx, sy, sz, sv, tuple(carry), mean, count, nrm, cnt2
+
+
+def fused_neighborhood_stats(
+    positions: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    radius: torch.Tensor | float,
+    window_blocks: int | tuple = 2,
+    passes: int = 2,
+    kmode: str = "sweep",
+    radius2: torch.Tensor | float | None = None,
+    entries_merge: bool = True,
+    carry_count: bool = True,
+):
+    """One shared neighbourhood sweep for statistical outliers and normals,
+    statistics back in input order.
+
+    The passes of ``_fused_passes`` with the input index carried, then one
+    unsort. Returns ``(mean_knn [..., N], normals [..., 3, N], count
+    [..., N][, count2 [..., N]])``; mean, count and count2 are 0 on
+    masked-out rows. ``count2`` (with ``radius2``) is the in-radius2
+    count, max-merged across passes.
+    """
+    n = positions.shape[-1]
+    idx = torch.arange(n, device=positions.device).expand(mask.shape)
+    _sx, _sy, _sz, _sv, (order,), mean, count, nrm, cnt2 = _fused_passes(
+        positions, mask, (idx,), k=k, radius=radius, window_blocks=window_blocks,
+        passes=passes, kmode=kmode, radius2=radius2, entries_merge=entries_merge,
+        carry_count=carry_count,
+    )
+    rows = (mean, count, *nrm.unbind(-2)) + ((cnt2,) if radius2 is not None else ())
+    mean, count, nx, ny, nz, *rest = _unsort(order, rows)
+    out = (_masked(mean, mask), torch.stack([nx, ny, nz], dim=-2), _masked(count, mask))
+    return out + tuple(_masked(r, mask) for r in rest)
 
 
 def fused_neighborhood_stats_reordered(
@@ -285,22 +451,24 @@ def fused_neighborhood_stats_reordered(
     passes: int = 2,
     kmode: str = "sweep",
     shrink_to: int = 0,
+    radius2: torch.Tensor | float | None = None,
+    presorted: bool = False,
+    entries_merge: bool = True,
+    carry_count: bool = True,
 ):
-    """Shared neighbourhood sweep (kNN mean distance + normals) that
-    reorders the buffer instead of unsorting the statistics; the
-    reference's ``presorted=True`` mode with normals from pass 0
-    (``entries_merge=False``).
+    """``fused_neighborhood_stats`` that reorders the buffer instead of
+    unsorting the statistics.
 
-    The input must be front-compacted and in pass-0 curve order, as the
-    curve-ordered voxel stage leaves it. Positions, mask and attributes
-    ride the curve sorts and come back in the last pass's curve order,
-    statistics aligned (the pipeline has no point-order contract after the
-    voxel stage). ``shrink_to`` (multiple of 128, 0 = off) shrinks the
-    buffer to that capacity. Positions [..., 3, N], mask [..., N] and
-    attributes [..., N] / [..., C, N] may carry a batch axis.
+    Positions, mask and attributes ride the curve sorts and come back in
+    the last pass's curve order, statistics aligned (the pipeline has no
+    point-order contract after the voxel stage). ``presorted``: the input
+    is front-compacted and in pass-0 curve order (the curve-ordered voxel
+    stage), so pass 0 needs no sort. ``shrink_to`` (multiple of 128, 0 =
+    off) shrinks the buffer to that capacity. Positions [..., 3, N], mask
+    [..., N] and attributes [..., N] / [..., C, N] may carry a batch axis.
 
-    Returns ``(positions, mask, attrs, mean_knn, normals, count)``; the
-    mean and count are zero on invalid rows.
+    Returns ``(positions, mask, attrs, mean_knn, normals, count[,
+    count2])``; mean, count and count2 are zero on invalid rows.
     """
     n = positions.shape[-1]
     lead = mask.shape[:-1]
@@ -310,21 +478,18 @@ def fused_neighborhood_stats_reordered(
         specs.append((name, v.shape, len(rows)))
         flat.extend(rows)
 
-    sx, sy, sz, sv, flat, mean, count, nx, ny, nz = _fused_passes(
+    sx, sy, sz, sv, flat, mean, count, normals, cnt2 = _fused_passes(
         positions, mask, flat, k=k, radius=radius, window_blocks=window_blocks,
-        passes=passes, kmode=kmode, shrink_to=shrink_to,
+        passes=passes, kmode=kmode, shrink_to=shrink_to, radius2=radius2,
+        presorted=presorted, entries_merge=entries_merge, carry_count=carry_count,
     )
     n_out = sx.shape[-1]
     out_attrs, i = {}, 0
     for name, shape, nrows in specs:
         out_attrs[name] = torch.stack(flat[i : i + nrows], dim=-2).reshape(shape[:-1] + (n_out,))
         i += nrows
-    zero = torch.zeros((), dtype=mean.dtype, device=mean.device)
-    return (
-        torch.stack([sx, sy, sz], dim=-2),
-        sv,
-        out_attrs,
-        torch.where(sv, mean, zero),
-        torch.stack([nx, ny, nz], dim=-2),
-        torch.where(sv, count, zero),
+    out = (
+        torch.stack([sx, sy, sz], dim=-2), sv, out_attrs, _masked(mean, sv), normals,
+        _masked(count, sv),
     )
+    return out if cnt2 is None else out + (_masked(cnt2, sv),)

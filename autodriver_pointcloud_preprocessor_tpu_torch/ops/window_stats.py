@@ -10,15 +10,17 @@ block sees a candidate window of ``window_blocks`` blocks each side, or
 for ``window_blocks == 0`` its own block plus the next (``direction`` 0)
 or previous (1) one. Non-finite or invalid rows are no candidates.
 Distances are taken about a per-block origin (the mean of the block's 128
-sanitized rows) and compared with the low 11 mantissa bits cleared, ties
-broken by window row.
+sanitized rows); the sweep and csel selects compare them with the low 11
+mantissa bits cleared, ties broken by window row, and bisect compares them
+untruncated. Every mode of the reference is here: 'sweep', 'csel' and
+'bisect', the moments on or off, and the second radius's count.
 
 Deliberate deviation: the reference computes d2 with an MXU matmul in
 'highest' or 'fast3' precision (``knn_d2mode``); here d2 is the plain f32
 sum of squared coordinate differences for both. Rows may carry a leading
-batch axis with a squared radius per scan (the reference's ``custom_vmap``
-rule); each scan's windows stop at its own ends. Not ported yet: kmode
-'bisect' and the second radius (``radius2``) (ROADMAP, kernels queue).
+batch axis with a squared radius (and second radius) per scan (the
+reference's ``custom_vmap`` rule); each scan's windows stop at its own
+ends.
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ _HALF_BIG = 5e29  # the reference's _BIG / 2
 _INVALID_KEY = 0x7F800000  # +inf bits: sorts after every finite d2
 _TRUNC = ~2047  # clears the 11 low mantissa bits
 _CSEL_ITERS = 2
-_KMODES = {"sweep": 0, "csel": 1}
+_BISECT_ITERS = 13
+_KMODES = {"sweep": 0, "csel": 1, "bisect": 2}
 _MAX_K = 64
 #: plain version: blocks per chunk, bounding its [blocks, span, 128] temporaries
 _PLAIN_CHUNK_ELEMS = 1 << 22
@@ -64,17 +67,21 @@ def _trunc(d2: torch.Tensor) -> torch.Tensor:
 
 def window_stats_plain(
     x, y, z, valid, r2: torch.Tensor, k: int, window_blocks: int,
-    kmode: str, direction: int, moments: bool,
+    kmode: str, direction: int, moments: bool, r2b: torch.Tensor | None = None,
 ):
     """Plain version of K3 (same contract as ``window_stats``, which
     validates the arguments). Rows are [N] or [B, N]; ``r2`` holds the
-    squared radius, float32[1] or one per scan [B]. A batch runs scan by
-    scan, each with its own windows and radius."""
+    squared radius, float32[1] or one per scan [B], and ``r2b``, when
+    given, the squared second radius in the same form (a 4th output, the
+    in-radius2 count, comes back). A batch runs scan by scan, each with its
+    own windows and radii."""
     if x.dim() == 2:
         r2 = r2.reshape(-1).expand(x.shape[0])
+        r2b_all = None if r2b is None else r2b.reshape(-1).expand(x.shape[0])
         outs = [
             window_stats_plain(x[i], y[i], z[i], valid[i], r2[i : i + 1], k,
-                               window_blocks, kmode, direction, moments)
+                               window_blocks, kmode, direction, moments,
+                               None if r2b_all is None else r2b_all[i : i + 1])
             for i in range(x.shape[0])
         ]
         return tuple(torch.stack(o) for o in zip(*outs))
@@ -90,6 +97,7 @@ def window_stats_plain(
     mean = torch.empty(n, dtype=torch.float32, device=dev)
     cnt = torch.empty(n, dtype=torch.float32, device=dev)
     mom = torch.zeros((10, n), dtype=torch.float32, device=dev)
+    cnt2 = None if r2b is None else torch.empty(n, dtype=torch.float32, device=dev)
     rows = torch.arange(span, device=dev)
     chunk = max(1, _PLAIN_CHUNK_ELEMS // (span * B))
     for b0 in range(0, nb, chunk):
@@ -108,6 +116,8 @@ def window_stats_plain(
         cv3 = cv[:, :, None].expand_as(d2)
         key = (d2.view(torch.int32) & _TRUNC) | rows.to(torch.int32)[None, :, None]
         key = torch.where(cv3, key, torch.full_like(key, _INVALID_KEY))
+        if cnt2 is not None:
+            cnt2[b0 * B : b1 * B] = (cv3 & (d2 <= r2b)).sum(1).to(torch.float32).reshape(-1)
         if moments:
             w = (cv3 & (d2 <= r2)).to(torch.float32)
             cx, cy, cz = (cand[i][:, :, None] for i in range(3))
@@ -130,14 +140,27 @@ def window_stats_plain(
                 hits = hits + hit[:, j].to(torch.float32)
             m_chunk, c_chunk = acc / torch.clamp(hits, min=1.0), hits
         else:
-            own = key[:, qoff : qoff + B]
-            kth = torch.topk(own, k, dim=1, largest=False, sorted=True).values[:, k - 1]
-            sparse = kth.view(torch.float32) >= _HALF_BIG
+            # threshold select: csel starts from the own block's k-th
+            # (truncated compares), bisect from the own block's max, or
+            # the window's when the own block has fewer than k valid rows
+            # (untruncated compares)
             hi_full = torch.where(cv3, d2, zero).amax(dim=1)
-            hi = torch.where(sparse, hi_full, (kth & _TRUNC).view(torch.float32))
+            if kmode == "csel":
+                own = key[:, qoff : qoff + B]
+                kth = torch.topk(own, k, dim=1, largest=False, sorted=True).values[:, k - 1]
+                sparse = kth.view(torch.float32) >= _HALF_BIG
+                hi = torch.where(sparse, hi_full, (kth & _TRUNC).view(torch.float32))
+                d2cmp = _trunc(d2)
+                iters = _CSEL_ITERS
+            else:
+                own_ok = cv3[:, qoff : qoff + B]
+                hi_own = torch.where(own_ok, d2[:, qoff : qoff + B], zero).amax(dim=1)
+                hi = torch.where(own_ok.sum(1) >= k, hi_own, hi_full)
+                sparse = torch.zeros_like(hi, dtype=torch.bool)
+                d2cmp = d2
+                iters = _BISECT_ITERS
             lo = torch.zeros_like(hi)
-            d2cmp = _trunc(d2)
-            for _ in range(_CSEL_ITERS):
+            for _ in range(iters):
                 mid = 0.5 * (lo + hi)
                 c = (cv3 & (d2cmp <= mid[:, None, :])).sum(1)
                 enough = c >= k
@@ -160,7 +183,7 @@ def window_stats_plain(
             c_chunk = torch.clamp(cntf, max=float(k))
         mean[b0 * B : b1 * B] = m_chunk.reshape(-1)
         cnt[b0 * B : b1 * B] = c_chunk.reshape(-1)
-    return mean, cnt, mom
+    return (mean, cnt, mom) if cnt2 is None else (mean, cnt, mom, cnt2)
 
 
 def window_stats(
@@ -174,7 +197,8 @@ def window_stats(
     kmode: str = "sweep",
     direction: int = 0,
     moments: bool = True,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    radius2: torch.Tensor | float | None = None,
+) -> Tuple[torch.Tensor, ...]:
     """Windowed stats over curve-sorted planar rows.
 
     Args:
@@ -186,22 +210,24 @@ def window_stats(
         k: neighbour count of the mean-distance statistic (1..64).
         window_blocks: candidate radius in 128-row blocks (0..7); 0 is the
             one-sided window chosen by ``direction``.
-        kmode: 'sweep' (exact k-select) or 'csel' (own-block threshold
-            select, 2 refinements and the at-threshold correction).
+        kmode: 'sweep' (exact k-select), 'csel' (own-block threshold
+            select, 2 refinements and the at-threshold correction) or
+            'bisect' (13 bisections of the untruncated distance from the
+            own block's max, and the same correction).
         direction: for ``window_blocks == 0``: 0 = next block, 1 = previous.
         moments: False skips the moments (their rows come back zero).
+        radius2: optional second radius (a float, a 0-d tensor, or one per
+            scan [B]); when given, a 4th output comes back.
     Returns:
         (mean_knn_dist float32[..., N], knn_count float32[..., N], moments
-        float32[..., 10, N]); moments rows are [n, Sx, Sy, Sz, Sxx, Syy,
-        Szz, Sxy, Sxz, Syz] over in-radius valid candidates (self included)
-        about the block origin. Entries of invalid queries are meaningless.
+        float32[..., 10, N][, count2 float32[..., N]]); moments rows are
+        [n, Sx, Sy, Sz, Sxx, Syy, Szz, Sxy, Sxz, Syz] over in-radius valid
+        candidates (self included) about the block origin; count2 counts
+        the valid candidates within ``radius2`` (self included). Entries of
+        invalid queries are meaningless.
     """
-    if kmode == "bisect":
-        raise NotImplementedError(
-            "kmode='bisect' is not ported yet (ROADMAP kernels queue, K3 modes)"
-        )
     if kmode not in _KMODES:
-        raise ValueError(f"kmode must be 'sweep' or 'csel', got {kmode!r}")
+        raise ValueError(f"kmode must be 'sweep', 'csel' or 'bisect', got {kmode!r}")
     if not 0 <= window_blocks <= 7:
         raise ValueError(f"window_blocks={window_blocks} not in 0..7")
     if not 1 <= k <= _MAX_K:
@@ -219,25 +245,40 @@ def window_stats(
         raise ValueError(f"window_stats: valid must be bool{list(shape)}")
     batch, n = (shape[0] if len(shape) == 2 else 1), shape[-1]
     dev = sorted_x.device
-    rad = torch.as_tensor(radius, dtype=torch.float32, device=dev).reshape(-1)
-    if rad.numel() not in (1, batch):
-        raise ValueError(f"window_stats: {rad.numel()} radii for {batch} scans")
-    r2 = (rad * rad).expand(batch).contiguous()
+    # per-scan squared radii [batch, 2]: the moment radius and the second
+    # radius; without one the moment radius fills the unread column (no new
+    # device scalar: a host scalar's copy would synchronise the stream)
+    rad = _squared_per_scan(radius, batch, dev)
+    r2 = torch.stack(
+        [rad, rad if radius2 is None else _squared_per_scan(radius2, batch, dev)], dim=-1
+    )
     if dev.type == "cpu":
         return window_stats_plain(
-            *rows, sorted_valid, r2, k, window_blocks, kmode, direction, moments
+            *rows, sorted_valid, r2[:, 0], k, window_blocks, kmode, direction, moments,
+            None if radius2 is None else r2[:, 1],
         )
     _build.require_cuda("window_stats", *rows, sorted_valid, r2)
     lib = _build.load_library()
     mean = torch.empty(shape, dtype=torch.float32, device=dev)
     cnt = torch.empty(shape, dtype=torch.float32, device=dev)
     mom = torch.empty(shape[:-1] + (10, n), dtype=torch.float32, device=dev)
+    cnt2 = None if radius2 is None else torch.empty(shape, dtype=torch.float32, device=dev)
     err = lib.apc_window_stats(
         *(r.data_ptr() for r in rows), sorted_valid.data_ptr(), r2.data_ptr(),
         mean.data_ptr(), cnt.data_ptr(), mom.data_ptr(),
+        None if cnt2 is None else cnt2.data_ptr(),
         batch, n, k, window_blocks, direction, _KMODES[kmode], int(moments),
         _build.stream_handle(dev),
     )
     _build.check(err, "window_stats")
     _build.LAUNCHES["window_stats"] += 1
-    return mean, cnt, mom
+    return (mean, cnt, mom) if cnt2 is None else (mean, cnt, mom, cnt2)
+
+
+def _squared_per_scan(radius, batch: int, dev) -> torch.Tensor:
+    """A radius (float, 0-d tensor or one per scan) -> float32[batch] of
+    its squares."""
+    rad = torch.as_tensor(radius, dtype=torch.float32, device=dev).reshape(-1)
+    if rad.numel() not in (1, batch):
+        raise ValueError(f"window_stats: {rad.numel()} radii for {batch} scans")
+    return (rad * rad).expand(batch)

@@ -27,8 +27,34 @@
    PyTorch call, single-scan and batched, and the ms per scan of the
    serial, sequential and vmapped modes at B=8 (CUDA events).
 
-With ``--profile DIR`` it also traces 5 single scans and one vmapped batch
-with torch.profiler and writes the time per operator (device and host) to
+The outlier slice, ``bench_suite.py`` config 2 (voxel + statistical and
+radius outliers, K3 with the second radius in the fused sweep) and
+``PRODUCTION_128K_QUALITY_CONFIG`` (pass-merged normals):
+
+9. (a) K3's ``radius2`` and ``bisect`` at config 2's shapes (131,072
+   rows, wb=1, k=20, passes 0 and 1) against their plain versions on a
+   CPU copy; at B=8 each batched launch with a radius2 per scan equals its
+   unbatched launch bit for bit.
+10. (b) Config 2 on the bench scene through ``build_pipeline``: 3 warm-up
+    and 20 timed scans, survivors and launches (0/1/2 a scan).
+11. (c) Config 2 through ``Preprocessor`` (the reference-named config):
+    keys and metadata in normal and profile mode (4 K3 launches, the
+    radius stage on its own), ``process_batch`` at B=8 vmapped and
+    sequential (launches K2/K3 1/2 and 8/16, every scan equal to its lone
+    run), and the ms per scan of the serial, sequential and vmapped modes.
+12. (d) Config 2 with ``knn_kmode='bisect'``: single scans, survivor
+    jaccard against the sweep run (>= 0.95).
+13. (e) ``PRODUCTION_128K_QUALITY_CONFIG`` through
+    ``Preprocessor.process_soa``: 20 timed scans, launches 1/1/2.
+14. (f) Config 2 and the QUALITY preset once on the CPU (plain versions,
+    the same draws) against the card: jaccard >= 0.99, QUALITY's normals
+    >= 98% within 2 degrees.
+15. (g) K3's kernel and plain times at config 2's shapes for sweep with
+    ``radius2`` and for bisect, beside their bounds.
+
+With ``--profile DIR`` it also traces, with torch.profiler, 5 single scans
+and one vmapped batch of the production preset and of config 2, and 5
+QUALITY scans, and writes the time per operator (device and host) to
 ``DIR/profile.txt``.
 
 Prints the card, the numbers, one ``{"kernels": [...]}`` line and, last,
@@ -63,6 +89,22 @@ SOURCES = {
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
 #: the tensor cores
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+#: bench_suite.py config 2 (:141-156): settings and parameters
+CONFIG2_SETTINGS = dict(
+    remove_duplicates=False, crop_to_roi=False, voxel_downsample=True,
+    remove_statistical_outliers=True, nb_neighbors=20, remove_radius_outliers=True,
+    estimate_normals=False, knn_method="window", voxel_compact_keys=True,
+)
+CONFIG2_PARAMS = dict(voxel_size=0.08, std_ratio=2.0, radius_nb_points=8,
+                      radius_search_radius=0.4)
+#: the same configuration under the reference's parameter names
+CONFIG2 = {
+    "remove_duplicates": False, "crop_to_roi": False, "voxel_size": 0.08,
+    "remove_statistical_outliers": True, "remove_statistical_outliers.nb_neighbors": 20,
+    "remove_statistical_outliers.std_ratio": 2.0, "remove_radius_outliers": True,
+    "remove_radius_outliers.nb_points": 8, "remove_radius_outliers.search_radius": 0.4,
+    "estimate_normals": False, "knn_method": "window",
+}
 
 
 def fail(msg: str) -> None:
@@ -141,13 +183,16 @@ def k2_work(values, flags):
     return 2 * values.numel() * 4 + flags.numel(), float(values.numel())
 
 
-def k3_work(rows, k, wb, direction, moments, mom0):
+def k3_work(rows, k, wb, direction, moments, mom0, kmode="csel", radius2=False):
     """Bytes and FLOPs of one K3 pass on this run's rows: 8 FLOPs (3 sub,
     3 mul, 2 add) for the distance of every valid (query, candidate) pair
     of a window, a square root and an add for each of the k kept
     distances of a valid query, and 19 FLOPs (9 products, 10 sums) for
     every in-radius pair of the moments (``mom0``: the in-radius counts the
-    pass gave). Bytes: 13 read and 48 written per row."""
+    pass gave). ``radius2``: one compare per valid pair for the second
+    radius's count. ``kmode='bisect'``: 14 compares per valid pair (13
+    bisections and the final masked sum) on distances counted once.
+    Bytes: 13 read and 48 written per row, 4 more with ``radius2``."""
     x, y, z, valid = rows
     n = x.shape[-1]
     ok = (valid & torch.isfinite(x) & torch.isfinite(y) & torch.isfinite(z)).reshape(-1, n)
@@ -155,10 +200,12 @@ def k3_work(rows, k, wb, direction, moments, mom0):
     lo, hi = (-wb, wb) if wb > 0 else ((0, 1) if direction == 0 else (-1, 0))
     padded = torch.nn.functional.pad(per_block, (-lo, hi))
     window = sum(padded[:, s : s + per_block.shape[1]] for s in range(hi - lo + 1))
-    flops = 8 * float((per_block * window).sum()) + 2 * k * float(ok.sum())
+    pairs = float((per_block * window).sum())
+    per_pair = 8 + (14 if kmode == "bisect" else 0) + (1 if radius2 else 0)
+    flops = per_pair * pairs + 2 * k * float(ok.sum())
     if moments:
         flops += 19 * float(mom0.reshape(ok.shape)[ok].double().sum())
-    return ok.numel() * (13 + 48), flops
+    return ok.numel() * (13 + 48 + (4 if radius2 else 0)), flops
 
 
 def survivor_normals(soa: dict) -> dict:
@@ -172,29 +219,18 @@ def bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
-def profile_runs(run, soa_host, params, dev, engine, batch_bufs, batch_draws, out_dir: str):
-    """Trace 5 single scans and one vmapped batch; write per-operator
-    device and host times."""
+def profile_runs(runs, dev, out_dir: str):
+    """Trace each ``(tag, fn)`` of ``runs`` with torch.profiler; write the
+    time per operator (device and host) of each to ``out_dir/profile.txt``."""
     import os
-
-    from autodriver_pointcloud_preprocessor_tpu_torch.core import from_soa, to_soa
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts):  # warm up the tracer
         torch.zeros(1, device=dev).add_(1)
         torch.cuda.synchronize()
-
-    def single():
-        for _ in range(5):
-            scan, meta = from_soa(soa_host, capacity=CAPACITY, device=dev)
-            to_soa(run(scan, params, torch.Generator(device=dev).manual_seed(0))[0], meta)
-
-    def batched():
-        engine.process_batch(batch_bufs, ground_uniforms=batch_draws)
-
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "profile.txt"), "w") as f:
-        for tag, fn in (("5 single scans", single), (f"1 vmapped batch of {BATCH}", batched)):
+        for tag, fn in runs:
             w0 = time.perf_counter()
             with torch.profiler.profile(activities=acts) as prof:
                 fn()
@@ -205,8 +241,11 @@ def profile_runs(run, soa_host, params, dev, engine, batch_bufs, batch_draws, ou
                 e.self_device_time_total for e in events
                 if e.device_type == torch.autograd.DeviceType.CUDA
             ) / 1e3
+            launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+            syncs = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
             line = (f"{tag}: wall {wall_ms:.3f} ms (traced), device busy {device_ms:.3f} ms "
-                    f"({100 * device_ms / wall_ms:.1f}%)")
+                    f"({100 * device_ms / wall_ms:.1f}%), {launches} cudaLaunchKernel, "
+                    f"{syncs} cudaStreamSynchronize")
             f.write(line + "\n\n")
             f.write(events.table(sort_by="self_device_time_total", row_limit=40))
             f.write("\n\n")
@@ -214,6 +253,332 @@ def profile_runs(run, soa_host, params, dev, engine, batch_bufs, batch_draws, ou
             f.write("\n\n")
             print(f"[chip_smoke] profile: {line}")
     print(f"[chip_smoke] profile tables: {out_dir}/profile.txt")
+
+
+def soa_positions(seed: int = 0) -> dict:
+    """bench_suite.py's config-2 input: the bench scene, positions only."""
+    return {"positions": scene(N_POINTS, seed)}
+
+
+def position_set(soa: dict) -> set:
+    return {tuple(r) for r in np.round(soa["positions"], 5).tolist()}
+
+
+def jaccard(a, b) -> float:
+    return len(a & b) / max(len(a | b), 1)
+
+
+def check_k3_plain(tag, got, rows, kw, radius, radius2=None):
+    """K3 launch ``got`` against its plain version on a CPU copy of its
+    inputs: means within 1e-5 relative on >= 99.9% of valid rows, equal
+    k-select counts, in-radius counts and second-radius counts, moments
+    within 1e-5 relative. Returns the largest mean difference."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops.window_stats import window_stats
+
+    got = [t.cpu() for t in got]
+    rows_cpu = [r.cpu() for r in rows]
+    cpu = lambda v: v.cpu() if torch.is_tensor(v) else v  # noqa: E731
+    want = window_stats(*rows_cpu, cpu(radius), radius2=None if radius2 is None else cpu(radius2), **kw)
+    check(len(got) == len(want) == (3 if radius2 is None else 4), f"K3 {tag}: outputs")
+    valid = rows_cpu[3]
+    rel = ((got[0] - want[0]).abs() / want[0].abs().clamp(min=1e-12))[valid]
+    share = float((rel <= 1e-5).float().mean())
+    check(share >= 0.999, f"K3 {tag}: only {share:.5f} of means within 1e-5 relative")
+    check(torch.equal(got[1][valid], want[1][valid]), f"K3 {tag}: k-select counts differ")
+    check(torch.equal(got[2][..., 0, :][valid], want[2][..., 0, :][valid]),
+          f"K3 {tag}: in-radius counts differ")
+    mom_err = float(((got[2] - want[2]).abs() / (want[2].abs() + 1.0)).movedim(-2, 0)[:, valid].max())
+    check(mom_err <= 1e-5, f"K3 {tag}: moments differ by {mom_err:.3e} relative (> 1e-5)")
+    extra = ""
+    if radius2 is not None:
+        check(torch.equal(got[3][valid], want[3][valid]), f"K3 {tag}: second-radius counts differ")
+        extra = f", count2 equal on {int(valid.sum())} valid rows (mean {float(got[3][valid].mean()):.2f})"
+    print(f"[chip_smoke] K3 {tag} {tuple(got[0].shape)}: {share:.6f} of means within 1e-5, "
+          f"max rel {float(rel.max()):.3e}, moments max rel {mom_err:.3e}{extra}")
+    return float((got[0] - want[0]).abs()[valid].max())
+
+
+def mode_ms(modes: dict, reps: int = 3) -> dict:
+    """{mode: ms per scan}: median over ``reps`` runs of each batch mode,
+    CUDA events around each, after one warm run of every mode."""
+    times = {m: [] for m in modes}
+    for fn in modes.values():
+        fn()
+    for _ in range(reps):
+        for m, fn in modes.items():
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[m].append(start.elapsed_time(end) / BATCH)
+    print(f"[chip_smoke]   all runs {json.dumps({m: [round(x, 3) for x in v] for m, v in times.items()})}")
+    return {m: float(np.median(v)) for m, v in times.items()}
+
+
+def outlier_slice(dev, quality_cfg):
+    """Phases 9-15: config 2 and the QUALITY preset (see the module
+    docstring). Returns the K3 numbers at config 2's shapes and each
+    path's launch counts."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.core import from_soa, stack_buffers, to_soa
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import (
+        STAGE_TIMING_KEYS, PipelineParams, PipelineSettings, build_pipeline, params_from_config,
+        settings_from_config, stage_functions,
+    )
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.preprocessor import Preprocessor
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops import _build
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops.window import _sorted_rows
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops.window_stats import (
+        window_stats, window_stats_plain,
+    )
+
+    settings = PipelineSettings(**CONFIG2_SETTINGS)
+    params = PipelineParams.make(**CONFIG2_PARAMS, device=dev)
+    radius, radius2 = params.search_radius, params.radius_search_radius
+    stages = dict(stage_functions(settings))
+    launches = {}
+
+    def k3_rows(buf):
+        """K3's rows of config 2's two passes, from a (batched) buffer."""
+        for name in ("non_finite", "voxel"):
+            buf = stages[name](buf, params, None, None)[0]
+        p0 = [buf.positions[..., c, :].contiguous() for c in range(3)] + [buf.mask.contiguous()]
+        p1 = list(_sorted_rows(buf.positions, buf.mask, 1))
+        return {"pass0": p0, "pass1": p1}, buf.mask.sum(-1)
+
+    passes = {"pass0": dict(direction=0), "pass1": dict(direction=1)}
+    common = dict(k=settings.nb_neighbors, window_blocks=settings.window_blocks, moments=True)
+    modes = {"sweep+radius2": "sweep", "bisect+radius2": "bisect"}
+
+    # ---- (a) K3's new modes against their plain versions -----------------
+    t0 = time.perf_counter()
+    rows, live = k3_rows(from_soa(soa_positions(), capacity=CAPACITY, device=dev)[0])
+    print(f"[chip_smoke] (a) config 2 K3 rows: {CAPACITY} a pass, {int(live)} live voxels")
+    max_err = 0.0
+    for mode, kmode in modes.items():
+        for p, kw in passes.items():
+            kw = dict(common, kmode=kmode, **kw)
+            got = window_stats(*rows[p], radius, radius2=radius2, **kw)
+            max_err = max(max_err, check_k3_plain(f"{mode} {p}", got, rows[p], kw, radius, radius2))
+    bufs = [from_soa(soa_positions(seed), capacity=CAPACITY, device=dev)[0] for seed in range(BATCH)]
+    brows, blive = k3_rows(stack_buffers(bufs))
+    per_scan_r2 = torch.tensor([0.4 + 0.01 * i for i in range(BATCH)], device=dev)
+    for mode, kmode in modes.items():
+        for p, kw in passes.items():
+            kw = dict(common, kmode=kmode, **kw)
+            got = window_stats(*brows[p], radius, radius2=per_scan_r2, **kw)
+            for i in range(BATCH):
+                alone = window_stats(*(r[i] for r in brows[p]), radius, radius2=per_scan_r2[i], **kw)
+                check(all(torch.equal(bits(g[i]), bits(a)) for g, a in zip(got, alone)),
+                      f"batched K3 {mode} {p}: element {i} differs from its unbatched launch")
+    print(f"[chip_smoke] (a) B={BATCH} (live {blive.tolist()}): batched K3 sweep and bisect with "
+          f"a radius2 per scan equal their unbatched launches bit for bit; vs plain max abs err "
+          f"{max_err:.3e} ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- (b) config 2 through build_pipeline -----------------------------
+    def scan_loop(tag, one_scan, want):
+        """Warm-up and timed scans of ``one_scan() -> (out soa, plane)``:
+        survivors in (0, N), finite positions, launches ``want`` a scan.
+        Returns (survivor sets, timed ms, launches of the run)."""
+        times, sets = [], []
+        _build.reset_launches()
+        for i in range(WARMUP + TIMED):
+            before = dict(_build.LAUNCHES)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            soa, plane = one_scan(i)
+            end.record()
+            torch.cuda.synchronize()
+            n = soa["positions"].shape[0]
+            check(0 < n < N_POINTS, f"{tag} scan {i}: {n} survivors outside (0, {N_POINTS})")
+            check(bool(np.isfinite(soa["positions"]).all()), f"{tag} scan {i}: non-finite survivors")
+            got = tuple(_build.LAUNCHES[k] - before[k] for k in KERNELS)
+            check(got == want, f"{tag} scan {i}: launches {got}, expected {want}")
+            if i >= WARMUP:
+                times.append(start.elapsed_time(end))
+                sets.append(position_set(soa))
+        run_launches = {k: _build.LAUNCHES[k] for k in KERNELS}
+        print(f"[chip_smoke] {tag}: {WARMUP + TIMED} scans ok, launches {json.dumps(run_launches)}; "
+              f"p50 {float(np.median(times)):.3f} ms/scan, p90 {float(np.percentile(times, 90)):.3f} "
+              f"(CUDA events, from_soa..to_soa), survivors {min(map(len, sets))}..{max(map(len, sets))}")
+        return sets, times, run_launches
+
+    soa2 = soa_positions()
+    run2 = build_pipeline(settings)
+
+    def config2_scan(run):
+        def one(i):
+            scan, meta = from_soa(soa2, capacity=CAPACITY, device=dev)
+            out, plane = run(scan, params, None)
+            return to_soa(out, meta), plane
+        return one
+
+    t0 = time.perf_counter()
+    sweep_sets, c2_ms, launches["config2_single"] = scan_loop(
+        "(b) config 2 single scans", config2_scan(run2), (0, 1, 2))
+    check(all(s == sweep_sets[0] for s in sweep_sets), "(b) config 2: scans of one input differ")
+    print(f"[chip_smoke] (b) took {time.perf_counter() - t0:.1f} s")
+
+    # ---- (c) config 2 through the engine ---------------------------------
+    t0 = time.perf_counter()
+    base_keys = {"tensor_transfer", "preprocessing_time", "device_to_host"}
+    for profile in (False, True):
+        engine = Preprocessor(CONFIG2, profile=profile, seed=0)
+        check(engine.settings.voxel_compact_keys is False, "(c) compact keys on without a crop")
+        engine.process_soa(soa2, capacity=CAPACITY)  # warm
+        _build.reset_launches()
+        eout, emeta = engine.process_soa(soa2, capacity=CAPACITY)
+        torch.cuda.synchronize()
+        got = tuple(_build.LAUNCHES[k] for k in KERNELS)
+        want = (0, 1, 4 if profile else 2)
+        check(got == want, f"(c) process_soa(profile={profile}): launches {got}, expected {want}")
+        launches["config2_profile" if profile else "config2_engine"] = dict(zip(KERNELS, got))
+        n = eout["positions"].shape[0]
+        check(0 < n < N_POINTS and "normals" not in eout, f"(c) profile={profile}: {n} survivors")
+        check("has_normals" not in emeta and emeta["ground_plane_estimate"] is None,
+              f"(c) profile={profile}: metadata {sorted(emeta)}")
+        keys = set(base_keys)
+        if profile:
+            keys |= {STAGE_TIMING_KEYS[name]
+                     for name, _ in stage_functions(engine.settings, separate_stages=True)}
+            check("remove_radius_outliers" in keys, "(c) profile mode has no radius stage")
+        check(set(engine.processing_times) == keys,
+              f"(c) processing_times keys {sorted(engine.processing_times)} != {sorted(keys)}")
+        times = {k: round(v * 1e3, 3) for k, v in engine.processing_times.items()}
+        print(f"[chip_smoke] (c) Preprocessor(config 2).process_soa(profile={profile}): {n} "
+              f"survivors, launches {json.dumps(launches['config2_profile' if profile else 'config2_engine'])}, "
+              f"processing_times ms {json.dumps(times)}")
+    engine = Preprocessor(CONFIG2, seed=0)
+    alone = [position_set(to_soa(engine.process_buffer(b)[0])) for b in bufs]
+    for sequential, want in ((False, (0, 1, 2)), (True, (0, BATCH, 2 * BATCH))):
+        mode = "sequential" if sequential else "vmapped"
+        _build.reset_launches()
+        outs, _ = engine.process_batch(bufs, sequential=sequential)
+        torch.cuda.synchronize()
+        got = tuple(_build.LAUNCHES[k] for k in KERNELS)
+        check(got == want, f"(c) process_batch {mode}: launches {got}, expected {want}")
+        launches[f"config2_{mode}"] = dict(zip(KERNELS, got))
+        sizes = []
+        for i, o in enumerate(outs):
+            a = position_set(to_soa(o))
+            j = jaccard(a, alone[i])
+            check(j == 1.0, f"(c) process_batch {mode}: scan {i} jaccard {j:.6f} against its lone run")
+            sizes.append(len(a))
+        print(f"[chip_smoke] (c) process_batch {mode} B={BATCH}: launches "
+              f"{json.dumps(launches[f'config2_{mode}'])}; every scan equals its lone run; "
+              f"survivors {sizes}")
+
+    def serial():
+        for b in bufs:
+            engine.process_buffer(b)
+            torch.cuda.synchronize()
+
+    c2_modes = mode_ms({
+        "serial": serial,
+        "sequential": lambda: engine.process_batch(bufs, sequential=True),
+        "vmapped": lambda: engine.process_batch(bufs),
+    })
+    print(f"[chip_smoke] (c) config 2 B={BATCH} ms/scan (CUDA events, median of 3 batches): "
+          + ", ".join(f"{m} {v:.3f}" for m, v in c2_modes.items())
+          + f" ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- (d) config 2 with the bisect k-select ---------------------------
+    t0 = time.perf_counter()
+    bisect_settings = PipelineSettings(**CONFIG2_SETTINGS, knn_kmode="bisect")
+    bisect_sets, c2b_ms, launches["config2_bisect"] = scan_loop(
+        "(d) config 2 bisect single scans", config2_scan(build_pipeline(bisect_settings)), (0, 1, 2))
+    j = jaccard(bisect_sets[0], sweep_sets[0])
+    print(f"[chip_smoke] (d) bisect vs sweep survivors: {len(bisect_sets[0])} vs "
+          f"{len(sweep_sets[0])}, jaccard {j:.5f} ({time.perf_counter() - t0:.1f} s)")
+    check(j >= 0.95, f"(d) bisect vs sweep survivor jaccard {j:.5f} < 0.95")
+
+    # ---- (e) the QUALITY preset through the engine -----------------------
+    t0 = time.perf_counter()
+    qengine = Preprocessor(quality_cfg, seed=0)
+    soa_q = bench_soa()
+
+    def quality_scan(i):
+        out, meta = qengine.process_soa(soa_q, capacity=CAPACITY)
+        plane = meta["ground_plane_estimate"]
+        check(plane is not None and abs(float(plane[2])) > 0.9, f"(e) scan {i}: plane {plane}")
+        check(out["normals"].shape == (out["positions"].shape[0], 3) and meta.get("has_normals") is True,
+              f"(e) scan {i}: normals")
+        return out, plane
+
+    _, q_ms, launches["quality_single"] = scan_loop("(e) QUALITY process_soa", quality_scan, (1, 1, 2))
+    print(f"[chip_smoke] (e) took {time.perf_counter() - t0:.1f} s")
+
+    # ---- (f) both once on the CPU ----------------------------------------
+    t0 = time.perf_counter()
+    cpu2 = to_soa(run2(from_soa(soa2, capacity=CAPACITY, device="cpu")[0],
+                       PipelineParams.make(**CONFIG2_PARAMS, device="cpu"), None)[0])
+    j2 = jaccard(position_set(cpu2), sweep_sets[0])
+    qsettings = settings_from_config(quality_cfg)
+    u = torch.from_numpy(np.random.default_rng(4).uniform(
+        size=(qsettings.num_iterations, qsettings.ransac_n)).astype(np.float32))
+    qrun = build_pipeline(qsettings)
+    sides = [
+        survivor_normals(to_soa(qrun(from_soa(soa_q, capacity=CAPACITY, device=d)[0],
+                                     params_from_config(quality_cfg, device=d), None, u.to(d))[0]))
+        for d in (dev, "cpu")
+    ]
+    common_q = sides[0].keys() & sides[1].keys()
+    jq = jaccard(sides[0].keys(), sides[1].keys())
+    cos = np.array([abs(float(np.dot(sides[0][p], sides[1][p]))) for p in common_q])
+    nq = float((cos >= np.cos(np.deg2rad(2.0))).mean()) if len(cos) else 0.0
+    print(f"[chip_smoke] (f) GPU vs CPU: config 2 survivors {len(sweep_sets[0])} vs "
+          f"{len(position_set(cpu2))}, jaccard {j2:.5f}; QUALITY {len(sides[0])} vs "
+          f"{len(sides[1])}, jaccard {jq:.5f}, normals within 2 deg {nq:.5f} of {len(common_q)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check(j2 >= 0.99, f"(f) config 2 GPU vs CPU jaccard {j2:.5f} < 0.99")
+    check(jq >= 0.99, f"(f) QUALITY GPU vs CPU jaccard {jq:.5f} < 0.99")
+    check(nq >= 0.98, f"(f) QUALITY GPU vs CPU: only {nq:.5f} of normals within 2 deg")
+
+    # ---- (g) K3's times at config 2's shapes -----------------------------
+    t0 = time.perf_counter()
+    k3 = {}
+    r2 = (radius * radius).reshape(1)
+    r2b = (radius2 * radius2).reshape(1)
+    for mode, kmode in modes.items():
+        km_t, pm_t, nbytes, flops = 0.0, 0.0, 0.0, 0.0
+        for p, kw in passes.items():
+            kw = dict(common, kmode=kmode, **kw)
+            km, pm = interleaved_ms(
+                lambda p=p, kw=kw: window_stats(*rows[p], radius, radius2=radius2, **kw),
+                lambda p=p, kw=kw: window_stats_plain(
+                    *rows[p], r2, kw["k"], kw["window_blocks"], kw["kmode"], kw["direction"],
+                    kw["moments"], r2b),
+                reps=10,
+            )
+            mom0 = window_stats(*rows[p], radius, radius2=radius2, **kw)[2][..., 0, :]
+            b, f = k3_work(rows[p], kw["k"], kw["window_blocks"], kw["direction"], True, mom0,
+                           kmode=kmode, radius2=True)
+            nbytes, flops = nbytes + b, flops + f
+            km_t, pm_t = km_t + km, pm_t + pm
+            print(f"[chip_smoke] (g) K3 {mode} {p}: kernel {km:.4f} ms, plain {pm:.4f} ms")
+        bms, by = bound(nbytes, flops)
+        k3[mode] = {"ms": km_t, "plain_ms": pm_t, "bound_ms": bms, "bound_by": by,
+                    "library_ms": None, "rows": CAPACITY, "passes": 2}
+        print(f"[chip_smoke] (g) K3 {mode}, both passes at {CAPACITY} rows: kernel {km_t:.4f} ms, "
+              f"plain torch {pm_t:.4f} ms, bound {bms:.4f} ms ({by})")
+    print(f"[chip_smoke] (g) took {time.perf_counter() - t0:.1f} s")
+    print(f"[chip_smoke] outlier slice: config 2 p50 {float(np.median(c2_ms)):.3f} ms/scan "
+          f"(bisect {float(np.median(c2b_ms)):.3f}), B={BATCH} vmapped {c2_modes['vmapped']:.3f} "
+          f"ms/scan; QUALITY p50 {float(np.median(q_ms)):.3f} ms/scan")
+    def five(one_scan):
+        def run():
+            for i in range(5):
+                one_scan(i)
+        return run
+
+    profile = [
+        ("config 2: 5 single scans", five(config2_scan(run2))),
+        (f"config 2: 1 vmapped batch of {BATCH}", lambda: engine.process_batch(bufs)),
+        ("QUALITY: 5 single scans (process_soa)", five(quality_scan)),
+    ]
+    return {"k3_config2": k3, "k3_config2_max_abs_err": max_err, "launches": launches,
+            "profile": profile}
 
 
 def main() -> None:
@@ -226,7 +591,7 @@ def main() -> None:
     )
     from autodriver_pointcloud_preprocessor_tpu_torch.models.preprocessor import Preprocessor
     from autodriver_pointcloud_preprocessor_tpu_torch.models.presets import (
-        PRODUCTION_128K_CONFIG,
+        PRODUCTION_128K_CONFIG, PRODUCTION_128K_QUALITY_CONFIG,
     )
     from autodriver_pointcloud_preprocessor_tpu_torch.ops import _build
     from autodriver_pointcloud_preprocessor_tpu_torch.ops.segmean import (
@@ -299,31 +664,6 @@ def main() -> None:
         p1 = list(_sorted_rows(torch.stack(p0[:3], dim=-2), p0[3], 1))
         return k1_rows, k1_mask, k2_vals, k2_flags, {"pass0": p0, "pass1": p1}, live
 
-    def check_k3(tag, got, rows):
-        """K3 against its plain version on a CPU copy: means within 1e-5
-        relative on >= 99.9% of valid rows, equal counts, moments within
-        1e-5."""
-        mean, cnt, mom = (t.cpu() for t in got)
-        rows_cpu = [r.cpu() for r in rows]
-        kw = k3_passes[tag]
-        pmean, pcnt, pmom = window_stats_plain(
-            *rows_cpu, r2_dev.cpu(), kw["k"], kw["window_blocks"], kw["kmode"],
-            kw["direction"], kw["moments"],
-        )
-        valid = rows_cpu[3]
-        rel = ((mean - pmean).abs() / pmean.abs().clamp(min=1e-12))[valid]
-        share = float((rel <= 1e-5).float().mean())
-        check(share >= 0.999, f"K3 {tag}: only {share:.5f} of means within 1e-5 relative")
-        check(torch.equal(cnt[valid], pcnt[valid]), f"K3 {tag}: k-select counts differ")
-        check(torch.equal(mom[..., 0, :][valid], pmom[..., 0, :][valid]),
-              f"K3 {tag}: in-radius counts differ")
-        # all 10 moment rows: n, Sx..Szz and the cross sums the normals come from
-        mom_err = float(((mom - pmom).abs() / (pmom.abs() + 1.0)).movedim(-2, 0)[:, valid].max())
-        check(mom_err <= 1e-5, f"K3 {tag}: moments differ by {mom_err:.3e} relative (> 1e-5)")
-        print(f"[chip_smoke] K3 {tag} {tuple(mean.shape)}: {share:.6f} of means within 1e-5, "
-              f"max rel {float(rel.max()):.3e}, moments max rel {mom_err:.3e}")
-        return float((mean - pmean).abs()[valid].max())
-
     # ---- main-path inputs of each kernel, from the bench scene ----------
     buf, _ = from_soa(bench_soa(), capacity=CAPACITY, device=dev)
     k1_rows, k1_mask, k2_vals, k2_flags, k3_rows, live = kernel_inputs(
@@ -345,7 +685,8 @@ def main() -> None:
     check(bool((err <= 1e-6 * ref.abs()).all()), "K2 segmented_sums differs beyond rtol 1e-6")
     max_err["segmented_sums"] = float(err.max())
     max_err["window_stats"] = max(
-        check_k3(tag, window_stats(*k3_rows[tag], params.search_radius, **kw), k3_rows[tag])
+        check_k3_plain(tag, window_stats(*k3_rows[tag], params.search_radius, **kw),
+                       k3_rows[tag], kw, params.search_radius)
         for tag, kw in k3_passes.items()
     )
     print(f"[chip_smoke] kernel vs plain max abs err: {json.dumps(max_err)}")
@@ -382,7 +723,7 @@ def main() -> None:
             alone = window_stats(*(r[i] for r in rows), params.search_radius, **kw)
             check(all(torch.equal(bits(g[i]), bits(a)) for g, a in zip(got, alone)),
                   f"batched K3 {tag}: element {i} differs from its unbatched launch")
-        k3_err = max(k3_err, check_k3(tag, got, rows))
+        k3_err = max(k3_err, check_k3_plain(tag, got, rows, kw, params.search_radius))
     batch_err["window_stats"] = k3_err
     print(f"[chip_smoke] B={BATCH}: every batched kernel equals its unbatched launches bit for "
           f"bit; vs batched plain max abs err {json.dumps(batch_err)}")
@@ -559,38 +900,45 @@ def main() -> None:
             engine.process_buffer(b, ground_uniforms=batch_draws[i])
             torch.cuda.synchronize()
 
-    modes = {
+    prod_modes = mode_ms({
         "serial": serial,
         "sequential": lambda: engine.process_batch(bufs, sequential=True, ground_uniforms=batch_draws),
         "vmapped": lambda: engine.process_batch(bufs, ground_uniforms=batch_draws),
-    }
-    mode_ms = {m: [] for m in modes}
-    for fn in modes.values():  # warm
-        fn()
-    for _ in range(3):
-        for m, fn in modes.items():
-            torch.cuda.synchronize()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            mode_ms[m].append(start.elapsed_time(end) / BATCH)
+    })
     print(f"[chip_smoke] B={BATCH} ms/scan (CUDA events, median of 3 batches, device buffers in "
-          f"and out): " + ", ".join(f"{m} {float(np.median(v)):.3f}" for m, v in mode_ms.items())
-          + f"; all {json.dumps({m: [round(x, 3) for x in v] for m, v in mode_ms.items()})}")
+          f"and out): " + ", ".join(f"{m} {v:.3f}" for m, v in prod_modes.items()))
+
+    # ---- the outlier slice: config 2 and the QUALITY preset --------------
+    slice3 = outlier_slice(dev, PRODUCTION_128K_QUALITY_CONFIG)
 
     if "--profile" in sys.argv:
-        profile_runs(run, soa_host, params, dev, engine, bufs, batch_draws,
-                     sys.argv[sys.argv.index("--profile") + 1])
+        def single():
+            for _ in range(5):
+                scan, meta = from_soa(soa_host, capacity=CAPACITY, device=dev)
+                to_soa(run(scan, params, torch.Generator(device=dev).manual_seed(0))[0], meta)
 
-    # the slice's path is the vmapped batch: its launches, and the kernels'
-    # numbers at its B=8 shapes; the single-scan path's figures ride beside
+        profile_runs(
+            [("production: 5 single scans", single),
+             (f"production: 1 vmapped batch of {BATCH}",
+              lambda: engine.process_batch(bufs, ground_uniforms=batch_draws)),
+             *slice3["profile"]],
+            dev, sys.argv[sys.argv.index("--profile") + 1],
+        )
+
+    # "launches" and the kernels' numbers are those of the production
+    # vmapped batch at its B=8 shapes (the path where all three kernels
+    # run); every path's launches, the single-scan figures and K3's modes at
+    # config 2's shapes ride beside
+    paths = {"production_single": single_launches,
+             **{f"production_{m}": v for m, v in batch_launches.items()},
+             **slice3["launches"]}
+    for name, counts in paths.items():
+        check(any(counts.values()), f"path {name} launched no kernel")
     kernels = []
     for k in KERNELS:
         km, pm, lib, bms, by = batch_t[k]
         skm, spm, slib, sbms, sby = single_t[k]
-        kernels.append({
+        entry = {
             "name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
             "launches": batch_launches["vmapped"][k], "max_abs_err": batch_err[k],
             "ms": km, "plain_ms": pm, "bound_ms": bms, "bound_by": by, "library_ms": lib,
@@ -598,7 +946,13 @@ def main() -> None:
             "single_scan": {"launches": single_launches[k], "max_abs_err": max_err[k], "ms": skm,
                             "plain_ms": spm, "bound_ms": sbms, "bound_by": sby,
                             "library_ms": slib},
-        })
+            "launches_by_path": {name: counts[k] for name, counts in paths.items()},
+        }
+        if k == "window_stats":
+            entry["modes_run"] = ["csel", "sweep", "bisect", "moments", "radius2"]
+            entry["config2"] = dict(slice3["k3_config2"],
+                                    max_abs_err=slice3["k3_config2_max_abs_err"])
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

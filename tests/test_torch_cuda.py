@@ -97,11 +97,53 @@ def test_window_stats_kernel_matches_plain(cuda, kmode, wb, direction, k, moment
     torch.testing.assert_close(got[2][:, v], want[2][:, v], rtol=1e-4, atol=1e-3)
 
 
+@pytest.mark.parametrize(
+    "kmode,wb,direction,k", [("bisect", 1, 0, 20), ("bisect", 0, 1, 8), ("sweep", 1, 0, 20),
+                             ("csel", 2, 0, 20)],
+)
+def test_window_stats_radius2_and_bisect_match_plain(cuda, kmode, wb, direction, k):
+    rng = _rng(40 + k + wb)
+    n = 8192
+    pts = (rng.uniform(-5, 5, (16, 3))[rng.integers(0, 16, n)]
+           + rng.normal(0, 0.4, (n, 3))).astype(np.float32)
+    pts = pts[np.lexsort(pts.T[::-1])]
+    valid = rng.uniform(size=n) < 0.95
+    valid[-300:] = False
+    valid[1024:1152] = False
+    valid[1024:1029] = True  # an own block with fewer than k valid rows
+    pts[rng.integers(0, n, 10)] = np.nan
+    rows = [torch.from_numpy(np.ascontiguousarray(pts[:, i])) for i in range(3)]
+    args = dict(k=k, window_blocks=wb, kmode=kmode, direction=direction, radius2=0.45)
+    want = window_stats(*rows, torch.from_numpy(valid), 0.3, **args)
+    before = _build.LAUNCHES["window_stats"]
+    got = [t.cpu() for t in window_stats(
+        *(r.to(cuda) for r in rows), torch.from_numpy(valid).to(cuda), 0.3, **args
+    )]
+    assert _build.LAUNCHES["window_stats"] == before + 1 and len(got) == 4
+    v = torch.from_numpy(valid) & torch.from_numpy(np.isfinite(pts).all(1))
+    rel = (got[0] - want[0]).abs() / want[0].abs().clamp(min=1e-12)
+    assert float((rel[v] <= 1e-5).float().mean()) >= 0.999
+    assert torch.equal(got[1][v], want[1][v])
+    assert torch.equal(got[2][0][v], want[2][0][v])
+    assert torch.equal(got[3][v], want[3][v])  # the second radius's count
+    # batched, a radius2 per scan: each element equals its unbatched launch
+    rows2 = [torch.stack([r, r.flip(0)]).to(cuda) for r in rows]
+    valid2 = torch.stack([torch.from_numpy(valid), torch.from_numpy(valid).flip(0)]).to(cuda)
+    r2s = torch.tensor([0.45, 0.6], device=cuda)
+    both = window_stats(*rows2, valid2, 0.3, **dict(args, radius2=r2s))
+    for i in range(2):
+        alone = window_stats(*(r[i] for r in rows2), valid2[i], 0.3, **dict(args, radius2=r2s[i]))
+        for g, a in zip(both, alone):
+            assert torch.equal(_bits(g[i]), _bits(a))
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     x = torch.zeros(256, device=cuda)
     v = torch.ones(256, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
         window_stats(x, x, x.cpu(), v, 0.1)
+    with pytest.raises(ValueError):
+        window_stats(x, x, x, v, 0.1, kmode="bisect", radius2=torch.ones(2, device=cuda))
     with pytest.raises(ValueError):
         masked_compact(torch.zeros((9, 256), device=cuda), v)
     with pytest.raises(ValueError):

@@ -1,7 +1,8 @@
 """Port kernels (plain PyTorch versions, CPU) against the reference Pallas
 kernels run in interpret mode: K1 masked compaction, K2 segmented sums,
-K3 window statistics, single-scan and with a batch axis (the reference
-under ``jax.vmap``). The same numpy inputs, made from a seed, go to both.
+K3 window statistics (every kmode, the moments and the second radius's
+count), single-scan and with a batch axis (the reference under
+``jax.vmap``). The same numpy inputs, made from a seed, go to both.
 """
 import functools
 
@@ -376,12 +377,125 @@ def test_window_stats_batch_matches_reference_vmap(kmode):
     assert not np.array_equal(flat[edge], port[0][0][edge])
 
 
+# ------------------------------------------- K3 bisect and radius2 ----
+#
+# One reference call per window gives both: kmode='bisect' with radius2.
+
+_R, _R2, _K = 0.35, 0.5, 20
+
+
+@functools.lru_cache(maxsize=None)
+def _bisect_r2_case(wb, direction):
+    """(pts, valid, reference outputs, port bisect outputs, port sweep mean)
+    of one clustered cloud."""
+    pts, valid = _curve_sorted_cloud(seed=60 + wb * 10 + direction)
+    ref = window_stats_pallas(
+        *(jnp.asarray(pts[:, i]) for i in range(3)), jnp.asarray(valid), _R,
+        k=_K, window_blocks=wb, interpret=True, kmode="bisect", direction=direction,
+        radius2=_R2,
+    )
+    rows = [_t(pts[:, i]) for i in range(3)]
+    args = dict(k=_K, window_blocks=wb, direction=direction)
+    port = window_stats(*rows, _t(valid), _R, kmode="bisect", radius2=_R2, **args)
+    sweep = window_stats(*rows, _t(valid), _R, kmode="sweep", **args)[0]
+    return pts, valid, [np.asarray(a) for a in ref], [a.numpy() for a in port], sweep.numpy()
+
+
+_BISECT_CASES = [(0, 1), (1, 0), (2, 0)]
+
+
+def _check_radius2(pts, valid, ref, port, wb, direction):
+    """count2 against the reference's row 12 and a float64 window oracle."""
+    live = valid & np.isfinite(pts).all(1)
+    _, exact_count2, _ = _oracle(pts, valid, wb, direction, _K, float(np.float32(_R2) ** 2))
+    # equal to the float64 oracle on every valid query
+    np.testing.assert_array_equal(port[3][live], exact_count2[live])
+    # and to the reference's matmul-distance count on >= 99.5% of them
+    # (its d2 may move a candidate across the radius; measured 100%)
+    assert (port[3] == ref[3])[live].mean() >= 0.995
+
+
+@pytest.mark.parametrize("wb,direction", _BISECT_CASES)
+def test_window_stats_radius2_matches_reference(wb, direction):
+    pts, valid, ref, port, _ = _bisect_r2_case(wb, direction)
+    assert len(port) == len(ref) == 4
+    _check_radius2(pts, valid, ref, port, wb, direction)
+    # the second radius leaves the other outputs as they were
+    rows = [_t(pts[:, i]) for i in range(3)]
+    plain = window_stats(*rows, _t(valid), _R, k=_K, window_blocks=wb, kmode="bisect",
+                         direction=direction)
+    assert len(plain) == 3
+    for got, want in zip(port[:3], plain):
+        np.testing.assert_array_equal(got, want.numpy())
+
+
+def _check_bisect(pts, valid, ref, port, sweep, sparse):
+    """The bisect criteria for one scan; ``sparse`` marks the queries of
+    the block with fewer than k valid rows (window-max start)."""
+    live = valid & np.isfinite(pts).all(1)
+    assert np.isfinite(port[0]).all() and (port[0] >= 0).all()
+    np.testing.assert_array_equal(port[1][live], ref[1][live])
+    # the same bisection on (nearly) the same distances: within 1e-3 for
+    # >= 99% of valid queries and 1e-2 for all (measured <= 4e-4 for all)
+    rel = np.abs(port[0] - ref[0]) / np.maximum(ref[0], 1e-6)
+    assert (rel[live] <= 1e-3).mean() >= 0.99
+    assert (rel[live] <= 1e-2).all(), rel[live].max()
+    # 13 bisections land within 1e-2 of the exact sweep for >= 99%
+    rel = np.abs(port[0] - sweep) / np.maximum(sweep, 1e-6)
+    assert (rel[live] <= 1e-2).mean() >= 0.99
+    # the sparse own block's queries start from the window max
+    np.testing.assert_allclose(port[0][sparse], ref[0][sparse], rtol=1e-3)
+
+
+@pytest.mark.parametrize("wb,direction", _BISECT_CASES)
+def test_window_stats_bisect_matches_reference(wb, direction):
+    pts, valid, ref, port, sweep = _bisect_r2_case(wb, direction)
+    sparse = np.zeros(_N, bool)
+    sparse[5 * 128 : 5 * 128 + 5] = True
+    assert valid[sparse].all() and valid[5 * 128 : 6 * 128].sum() < _K
+    _check_bisect(pts, valid, ref, port, sweep, sparse)
+
+
+def test_window_stats_bisect_radius2_batch_matches_reference_vmap():
+    wb, direction = 1, 0
+    pts, valid = _batched_clouds()
+    radius, radius2 = np.float32([0.3, 0.4]), np.float32([0.45, 0.6])  # one each per scan
+    fn = functools.partial(window_stats_pallas, k=_K, window_blocks=wb, interpret=True,
+                           kmode="bisect", direction=direction)
+    ref = jax.vmap(lambda x, y, z, v, r, r2: fn(x, y, z, v, r, radius2=r2))(
+        *(jnp.asarray(pts[..., c]) for c in range(3)), jnp.asarray(valid),
+        jnp.asarray(radius), jnp.asarray(radius2),
+    )
+    ref = [np.asarray(a) for a in ref]
+    rows = [_t(pts[..., c]) for c in range(3)]
+    args = dict(k=_K, window_blocks=wb, direction=direction)
+    port = [a.numpy() for a in window_stats(*rows, _t(valid), _t(radius), kmode="bisect",
+                                            radius2=_t(radius2), **args)]
+    sweep = window_stats(*rows, _t(valid), _t(radius), kmode="sweep", **args)[0].numpy()
+    sparse = np.zeros(_N, bool)
+    sparse[5 * 128 : 5 * 128 + 5] = True
+    for i in range(2):
+        r_i, p_i = [a[i] for a in ref], [a[i] for a in port]
+        live = valid[i] & np.isfinite(pts[i]).all(1)
+        _, exact_count2, _ = _oracle(pts[i], valid[i], wb, direction, _K,
+                                     float(radius2[i]) ** 2)
+        np.testing.assert_array_equal(p_i[3][live], exact_count2[live])
+        assert (p_i[3] == r_i[3])[live].mean() >= 0.995
+        _check_bisect(pts[i], valid[i], r_i, p_i, sweep[i], sparse if i == 0 else sparse[::-1])
+        alone = window_stats(*(r[i] for r in rows), _t(valid[i]), float(radius[i]),
+                             kmode="bisect", radius2=float(radius2[i]), **args)
+        for got, want in zip(p_i, alone):
+            np.testing.assert_array_equal(got, want.numpy())
+
+
 def test_window_stats_rejects_unported_modes():
     x = torch.zeros(256)
     v = torch.ones(256, dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
-        window_stats(x, x, x, v, 0.1, kmode="bisect")
+    with pytest.raises(ValueError):
+        window_stats(x, x, x, v, 0.1, kmode="nope")
     with pytest.raises(ValueError):
         window_stats(x, x, x, v, 0.1, window_blocks=8)
     with pytest.raises(ValueError):
         window_stats(x[:200], x[:200], x[:200], v[:200], 0.1)
+    with pytest.raises(ValueError):
+        window_stats(x, x, x, v, 0.1, radius2=torch.ones(3))

@@ -265,11 +265,11 @@ def test_front_only_pipeline_matches_reference(pallas_interpret):
     [
         {"remove_ground.method": "height"},
         {"remove_ground.before_voxel": False},
-        {"knn_method": "exact"},
+        {"downsample_method": "uniform"},
         {"downsample_method": "random"},
-        {"normals_merge_passes": True},
-        {"remove_radius_outliers": True},
-        {"knn_kmode": "bisect"},
+        {"downsample_method": "farthest_point"},
+        {"remove_ground.score_subsample": 16384},
+        {"remove_ground.before_voxel": False, "remove_ground.before_neighborhood": True},
         {"roi_min": [-500.0, -500.0, -20.0], "roi_max": [500.0, 500.0, 20.0]},
     ],
 )
@@ -285,6 +285,10 @@ def test_port_imports_without_jax():
         "import autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline\n"
         "import autodriver_pointcloud_preprocessor_tpu_torch.convert\n"
         "import autodriver_pointcloud_preprocessor_tpu_torch.models.preprocessor\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.ops.knn\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.ops.outliers\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.ops.radius_outliers\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.ops.normals\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(m.startswith('autodriver_pointcloud_preprocessor_tpu.')"
         " or m == 'autodriver_pointcloud_preprocessor_tpu' for m in sys.modules)\n"

@@ -249,8 +249,8 @@ def test_update_config_rolls_back_like_the_reference():
         assert engine.settings == pipeline.settings_from_config(CFG)
     # a stage the port lacks is refused at reconfigure, and rolled back
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.update_config({"knn_kmode": "bisect"})
-    assert engine.config == CFG and engine.settings.knn_kmode == "csel"
+        engine.update_config({"remove_ground.method": "height"})
+    assert engine.config == CFG and engine.settings.ground_method == "ransac"
     engine.update_config({"voxel_size": 0.1})
     ref_engine.update_config({"voxel_size": 0.1})
     assert engine.config == ref_engine.config
