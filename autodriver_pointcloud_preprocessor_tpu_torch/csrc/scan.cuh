@@ -1,5 +1,6 @@
-// Three-phase stream scan over flag rows, shared by the compaction (K1)
-// and segmented-sum (K2) kernels. Every phase runs per batch element: the
+// Three-phase stream scan over flag rows, of the compaction kernel (K1;
+// K2 ranks its run starts inside its one kernel). Every phase runs per
+// batch element: the
 // flags are [batch, n], element b's row starting at b * n, and each
 // element's ranks count within its own row only.
 //

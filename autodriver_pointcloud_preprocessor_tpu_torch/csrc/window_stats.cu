@@ -18,16 +18,17 @@
 //     a fixed-order tree that the plain PyTorch version repeats);
 //   * when count2 is not null, the count of valid candidates within the
 //     second radius (the reference's output row 12, for radius outliers).
-// Batch axis: rows are [batch, n] and r2 is [batch, 2] (each scan's squared
-// moment radius and squared second radius, the reference's per-scan SMEM
-// table, pallas_window.py:461-467); the
-// grid is (n / 128, batch) and each element's window stops at its own row
+// Batch axis: rows are [batch, n], with a moment radius and a second
+// radius per scan or one for all (the reference's per-scan SMEM table,
+// pallas_window.py:461-467, squared in the kernel); the grid is
+// (n / 128 * kSplit, batch) and each element's window stops at its own row
 // ends, so no window reaches into the neighbouring scan. This is the
 // reference's custom_vmap rule (_make_window_stats) as a grid dimension.
 // Windows: wb >= 1 is wb blocks each side; wb == 0 is the own block plus
 // the next one (direction 0) or the previous one (direction 1).
 // Out-of-range rows, invalid rows and non-finite rows are excluded as
-// candidates; non-finite coordinates are zeroed before any arithmetic.
+// candidates; non-finite coordinates are zeroed in the block origin and
+// the query.
 //
 // Semantics kept from the reference: distances are compared with the low
 // 11 mantissa bits cleared and ties broken by window row (the key is
@@ -36,68 +37,168 @@
 // Here d2 is the plain f32 sum of squared differences of centered
 // coordinates, for both modes.
 //
-// Design for the H100: one 128-thread CTA per 128-query block stages the
-// sanitized, centered window (x, y, z, valid) in shared memory: 13 bytes a
-// row, 5 KB at wb=1 and 25 KB at wb=7. One thread per query walks the
-// window from shared memory; the k smallest keys live in a register array
-// (sorted insertion, MAXK >= k slots, fully unrolled), so nothing but the
-// window and the outputs touch device memory. The second-radius count is
-// one compare per candidate in the same walk. The moment and csel/bisect
-// distance sums accumulate in double, which makes them independent of the
-// order of addition to float rounding. Bound: the per-thread compare work
-// (span x MAXK integer min/max for the top-k; 3 more window walks for
-// csel, 14 for bisect), not bytes: the whole pass reads 13 bytes and writes
-// at most 52 bytes per row.
+// Design for the H100. The work is compares and integer min/max over
+// (query, candidate) pairs, not bytes: a pass reads 13 bytes and writes at
+// most 52 bytes a row. What bounds it is instructions a pair and enough
+// warps in flight to hide shared-memory and dependency latency.
+//   * A lane group of kG = 8 lanes of one warp serves one query, each lane
+//     the window rows r = lane + 8 i; a 256-thread CTA serves 32 queries,
+//     so kSplit = 4 CTAs share a 128-row block (1,600 CTAs at production's
+//     51,200 rows). Each CTA stages the window (x, y, z: 12 bytes a row,
+//     4.5 KB at wb=1) in shared memory, with NaN coordinates on every row
+//     that is no candidate, so that each compare with its d2 fails and the
+//     walks need no valid flag; it recomputes the block origin with the
+//     same fixed-order tree, so no output depends on the split.
+//   * csel and bisect keep each query's d2 row in shared memory (50 KB a
+//     CTA at wb=1, 4 CTAs an SM; only up to wb=2) and walk it with 8-byte
+//     loads for their 3 and 14 threshold walks. csel's truncated compare
+//     trunc(d2) <= t is the plain compare d2 <= bits(t) | 2047.
+//   * Counts (the threshold walks, the moment count, the second-radius
+//     count) are exact integer sums over the group (__reduce_add_sync).
+//     Moment and distance sums accumulate in double in each lane and
+//     across the group, which makes them independent of the order of
+//     addition to float rounding.
+//   * The top-k (sweep: the whole window; csel: the own block) keeps, in
+//     each lane, its lane_cap(MAXK) smallest keys (8, 16 for MAXK = 64) in
+//     a sorted register array. The k-th key of the group comes from k
+//     rounds of a group-wide min, the owner popping its head; only then
+//     does each lane add the distances of its keys at or below it, in
+//     double (the plain version adds the k distances in ascending float
+//     order: the two agree to float rounding). A lane whose share held
+//     more candidates than its list and whose list ends below the k-th key
+//     may have dropped one of the k: the group then finds the k-th exactly
+//     by k walks for the next smallest key (rare).
+//   * No tensor cores: d2 has depth 3, and the port keeps the difference
+//     form (the reference's |c|^2 + |q|^2 - 2 c.q matmul cancels on wide
+//     windows), so wgmma would gain nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
 constexpr int kB = 128;
+constexpr int kThreads = 256;
+constexpr int kG = 8;                     // lanes per query
+constexpr int kQ = kThreads / kG;         // queries per CTA
+constexpr int kSplit = kB / kQ;           // CTAs per 128-row block
+constexpr int kMaxWb = 7;
+// csel and bisect keep each query's d2 row in shared memory for their
+// threshold walks up to this window (wb <= 2)
+constexpr int kCacheSpan = 5 * kB;
 constexpr float kHalfBig = 5e29f;             // the reference's _BIG / 2
 constexpr uint32_t kInvalidKey = 0x7F800000u;  // +inf: after every finite d2
 constexpr uint32_t kTrunc = ~2047u;
 constexpr int kCselIters = 2;
 constexpr int kBisectIters = 13;
+static_assert(kG < 32 && 32 % kG == 0 && kB % kQ == 0, "lane groups tile warps and blocks");
 
-__device__ __forceinline__ float trunc_d2(float d2) {
-  return __uint_as_float(__float_as_uint(d2) & kTrunc);
+// per-lane list capacity of the fast top-k
+__host__ __device__ constexpr int lane_cap(int maxk) {
+  return maxk < 8 ? maxk : (2 * maxk / kG > 8 ? 2 * maxk / kG : 8);
 }
 
-template <int MAXK>
-__device__ __forceinline__ void topk_insert(uint32_t (&top)[MAXK], uint32_t v) {
+__host__ __device__ constexpr int window_span(int wb) { return wb > 0 ? (2 * wb + 1) * kB : 2 * kB; }
+
+__host__ __device__ constexpr bool d2_cached(int kmode, int span) {
+  return kmode != 0 && span <= kCacheSpan;
+}
+
+// floats of shared memory before the window's rows: the queries' d2 rows
+// ([kQ][kG][span / kG + 2]: a row of 2 (mod 32) more than a multiple of 16
+// floats puts the 8 lanes of a group, and the two groups of a half-warp,
+// on distinct banks for 8-byte loads), or, without them, the [3][kB] tree
+// of the block origin (which the d2 rows otherwise overlay)
+__host__ __device__ constexpr int lead_floats(int kmode, int span) {
+  return d2_cached(kmode, span) ? kQ * kG * (span / kG + 2) : 3 * kB;
+}
+
+template <int CAP>
+__device__ __forceinline__ void topk_insert(uint32_t (&top)[CAP], uint32_t v) {
 #pragma unroll
-  for (int j = 0; j < MAXK; ++j) {
+  for (int j = 0; j < CAP; ++j) {
     const uint32_t lo = min(v, top[j]);
     v = max(v, top[j]);
     top[j] = lo;
   }
 }
 
+__device__ __forceinline__ double group_sum(unsigned gmask, double v) {
+#pragma unroll
+  for (int o = kG / 2; o > 0; o >>= 1) v += __shfl_xor_sync(gmask, v, o);
+  return v;  // a + b == b + a: every lane holds the same bits
+}
+
+__device__ __forceinline__ float group_max(unsigned gmask, float v) {
+  // v >= 0: non-negative floats order as their bits
+  return __uint_as_float(__reduce_max_sync(gmask, __float_as_uint(v)));
+}
+
+// The group's minimum: by shuffles or by one warp reduction. Which is
+// faster depends on the mode's register pressure (measured on the H100:
+// shuffles for csel, the reduction for sweep).
+template <bool SHUFFLE>
+__device__ __forceinline__ uint32_t group_min(unsigned gmask, uint32_t v) {
+  if (!SHUFFLE) return __reduce_min_sync(gmask, v);
+#pragma unroll
+  for (int o = kG / 2; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(gmask, v, o));
+  return v;
+}
+
+// The k-th smallest key of the group's sorted lists, or kInvalidKey when
+// they hold fewer than k: k rounds of a group-wide min, the owner popping
+// its head (keys are distinct; an empty list pops nothing but +inf).
+template <bool SHUFFLE, int CAP>
+__device__ __forceinline__ uint32_t group_kth(unsigned gmask, uint32_t (&top)[CAP], int k) {
+  uint32_t m = kInvalidKey;
+  for (int j = 0; j < k; ++j) {
+    m = group_min<SHUFFLE>(gmask, top[0]);
+    const bool pop = top[0] == m;
+#pragma unroll
+    for (int i = 0; i + 1 < CAP; ++i) top[i] = pop ? top[i + 1] : top[i];
+    top[CAP - 1] = pop ? kInvalidKey : top[CAP - 1];
+  }
+  return m;
+}
+
+// A key counts as one of the k nearest (a hit) when it is at or below the
+// k-th key and its distance is below the reference's _BIG / 2.
+__device__ __forceinline__ bool hit_key(uint32_t key, uint32_t kth) {
+  return key <= kth && __uint_as_float(key) < kHalfBig;
+}
+
 // KMODE (0 sweep, 1 csel, 2 bisect) and COUNT2 (the second radius's count
 // on or off) are template parameters: each instantiation carries only its
-// own mode's state, which keeps the csel instantiation of the production
-// path at the registers it had before the other modes were added (a
-// runtime mode switch cost 36 more registers and one block per SM).
+// own mode's state (a runtime mode switch cost csel 36 more registers).
+// Grid (n / 128 * kSplit, batch), kThreads threads; dynamic shared memory
+// window_smem(wb, KMODE).
 template <int MAXK, int KMODE, bool COUNT2>
-__global__ void __launch_bounds__(kB)
+__global__ void __launch_bounds__(kThreads, 4)  // 64 registers: 4 CTAs an SM
 window_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
                     const float* __restrict__ z,
                     const uint8_t* __restrict__ valid,
-                    const float* __restrict__ r2_ptr,
+                    const float* __restrict__ rad, int rad_stride,
+                    const float* __restrict__ rad2, int rad2_stride,
                     float* __restrict__ mean_out, float* __restrict__ cnt_out,
                     float* __restrict__ mom_out, float* __restrict__ cnt2_out,
                     int n, int k, int wb, int direction, int moments_on) {
-  extern __shared__ float smem[];
-  __shared__ float red[3][kB];
-  const int span = wb > 0 ? (2 * wb + 1) * kB : 2 * kB;
+  constexpr int CAP = lane_cap(MAXK);
+  constexpr bool csel = KMODE == 1;
+  constexpr bool bisect = KMODE == 2;
+  extern __shared__ __align__(16) float smem[];
+  const int span = window_span(wb);
   const int qoff = wb > 0 ? wb * kB : (direction == 0 ? 0 : kB);
-  float* sx = smem;
+  const int per_lane = span / kG;  // window rows of one lane: r = lane + kG * i
+  const bool cached = d2_cached(KMODE, span);
+  const int seg = per_lane + 2;    // a lane's d2 row, padded (see lead_floats)
+  float* dcache = smem;            // [kQ][kG][seg] when cached
+  float* red = smem;               // [3][kB], before the d2 rows are written
+  float* sx = smem + lead_floats(KMODE, span);
   float* sy = sx + span;
   float* sz = sy + span;
-  uint8_t* sv = reinterpret_cast<uint8_t*>(sz + span);
   const int t = threadIdx.x;
-  const int start = blockIdx.x * kB - qoff;
+  const int block = blockIdx.x / kSplit;
+  const int start = block * kB - qoff;
   const size_t elem = blockIdx.y;
   x += elem * n;
   y += elem * n;
@@ -108,59 +209,86 @@ window_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
   mom_out += elem * 10 * n;
   if (COUNT2) cnt2_out += elem * n;
 
-  for (int r = t; r < span; r += kB) {
+  // the window: sanitized rows, NaN where a row is no candidate (out of
+  // range, invalid or non-finite), so that every compare with its d2 fails
+  const float kNaN = __uint_as_float(0x7FC00000u);
+  for (int r = t; r < span; r += kThreads) {
     const int g = start + r;
-    float fx = 0.0f, fy = 0.0f, fz = 0.0f;
-    uint8_t ok = 0;
-    if (g >= 0 && g < n) {
+    float fx = kNaN, fy = kNaN, fz = kNaN;
+    if (g >= 0 && g < n && valid[g] != 0) {
       const float ax = x[g], ay = y[g], az = z[g];
-      const bool fin = isfinite(ax) && isfinite(ay) && isfinite(az);
-      if (fin) {
+      if (isfinite(ax) && isfinite(ay) && isfinite(az)) {
         fx = ax;
         fy = ay;
         fz = az;
       }
-      ok = (fin && valid[g] != 0) ? 1 : 0;
     }
     sx[r] = fx;
     sy[r] = fy;
     sz[r] = fz;
-    sv[r] = ok;
   }
-  __syncthreads();
-
-  // block origin: tree sum of the 128 query rows, pairs (t, t + s)
-  red[0][t] = sx[qoff + t];
-  red[1][t] = sy[qoff + t];
-  red[2][t] = sz[qoff + t];
+  // block origin: tree sum of the 128 sanitized query rows (non-finite
+  // coordinates zeroed, invalid rows kept), pairs (t, t + s)
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f;
+  if (t < kB) {
+    const int g = block * kB + t;
+    const float ax = x[g], ay = y[g], az = z[g];
+    if (isfinite(ax) && isfinite(ay) && isfinite(az)) {
+      ox = ax;
+      oy = ay;
+      oz = az;
+    }
+    red[t] = ox;
+    red[kB + t] = oy;
+    red[2 * kB + t] = oz;
+  }
   __syncthreads();
   for (int s = kB / 2; s > 0; s >>= 1) {
     if (t < s) {
-      red[0][t] += red[0][t + s];
-      red[1][t] += red[1][t + s];
-      red[2][t] += red[2][t + s];
+      red[t] += red[t + s];
+      red[kB + t] += red[kB + t + s];
+      red[2 * kB + t] += red[2 * kB + t + s];
     }
     __syncthreads();
   }
-  const float c0x = red[0][0] * (1.0f / kB);
-  const float c0y = red[1][0] * (1.0f / kB);
-  const float c0z = red[2][0] * (1.0f / kB);
-  for (int r = t; r < span; r += kB) {
+  const float c0x = red[0] * (1.0f / kB);
+  const float c0y = red[kB] * (1.0f / kB);
+  const float c0z = red[2 * kB] * (1.0f / kB);
+  for (int r = t; r < span; r += kThreads) {
     sx[r] = sx[r] - c0x;
     sy[r] = sy[r] - c0y;
     sz[r] = sz[r] - c0z;
   }
-  __syncthreads();
+  __syncthreads();  // the window is centred; red may be overwritten
 
-  const float qx = sx[qoff + t], qy = sy[qoff + t], qz = sz[qoff + t];
-  const float r2 = r2_ptr[2 * elem];
-  const float r2b = r2_ptr[2 * elem + 1];
-  constexpr bool csel = KMODE == 1;
-  constexpr bool bisect = KMODE == 2;
+  // this lane's query (its sanitized row, centred: finite even when the
+  // query is no candidate), its group of kG lanes and its d2 row
+  const int lane = t & (kG - 1);
+  const unsigned gmask = ((1u << kG) - 1u) << ((t & 31) & ~(kG - 1));
+  const int q = (blockIdx.x % kSplit) * kQ + t / kG;
+  float qx, qy, qz;
+  {
+    const int g = block * kB + q;
+    const float ax = x[g], ay = y[g], az = z[g];
+    const bool fin = isfinite(ax) && isfinite(ay) && isfinite(az);
+    qx = (fin ? ax : 0.0f) - c0x;
+    qy = (fin ? ay : 0.0f) - c0y;
+    qz = (fin ? az : 0.0f) - c0z;
+  }
+  float* dl = dcache + ((t / kG) * kG + lane) * seg;  // this lane's d2 row
+  const float r2 = rad[elem * rad_stride] * rad[elem * rad_stride];
+  const float r2b = COUNT2 ? rad2[elem * rad2_stride] * rad2[elem * rad2_stride] : 0.0f;
   // the top-k runs over the whole window (sweep), the own block (csel) or
-  // nothing (bisect)
-  const int sel_lo = csel ? qoff : 0;
-  const int sel_hi = bisect ? 0 : (csel ? qoff + kB : span);
+  // nothing (bisect): lane steps [sel_lo, sel_hi)
+  const int sel_lo = csel ? qoff / kG : 0;
+  const int sel_hi = bisect ? 0 : (csel ? (qoff + kB) / kG : per_lane);
+  // d2 of this lane's window row r = lane + kG * i (NaN: no candidate)
+  auto d2_at = [&](int i) -> float {
+    if (cached) return dl[i];
+    const int r = lane + kG * i;
+    const float dx = sx[r] - qx, dy = sy[r] - qy, dz = sz[r] - qz;
+    return dx * dx + dy * dy + dz * dz;
+  };
 
   // sums of up to 1920 candidates accumulate in double: the result is then
   // (all but surely) the correctly rounded float sum whatever the order, so
@@ -168,20 +296,23 @@ window_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
   double m[10];
 #pragma unroll
   for (int i = 0; i < 10; ++i) m[i] = 0.0;
-  uint32_t top[MAXK];
+  uint32_t top[CAP];
 #pragma unroll
-  for (int j = 0; j < MAXK; ++j) top[j] = kInvalidKey;
+  for (int j = 0; j < CAP; ++j) top[j] = kInvalidKey;
   float hi_full = 0.0f;  // the window's max valid d2
   float hi_own = 0.0f;   // the own block's max valid d2 (bisect)
   int n_own = 0;         // the own block's valid rows (bisect)
+  int n_sel = 0;         // this lane's valid rows in the top-k range
   int cnt2 = 0;
 
-  for (int r = 0; r < span; ++r) {
-    if (!sv[r]) continue;
+  for (int i = 0; i < per_lane; ++i) {
+    const int r = lane + kG * i;
     const float cx = sx[r], cy = sy[r], cz = sz[r];
     const float dx = cx - qx, dy = cy - qy, dz = cz - qz;
     const float d2 = dx * dx + dy * dy + dz * dz;
-    hi_full = fmaxf(hi_full, d2);
+    if (cached) dl[i] = d2;
+    const bool ok = d2 == d2;  // a candidate
+    hi_full = fmaxf(hi_full, d2);  // fmaxf drops NaN
     if (COUNT2) cnt2 += d2 <= r2b ? 1 : 0;
     if (moments_on && d2 <= r2) {
       m[0] += 1.0;
@@ -197,72 +328,126 @@ window_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
     }
     if (bisect && r >= qoff && r < qoff + kB) {
       hi_own = fmaxf(hi_own, d2);
-      ++n_own;
+      n_own += ok ? 1 : 0;
     }
-    if (r >= sel_lo && r < sel_hi) {
-      const uint32_t key = (__float_as_uint(d2) & kTrunc) | (uint32_t)r;
-      if (key < top[MAXK - 1]) topk_insert<MAXK>(top, key);
+    if (!bisect && i >= sel_lo && i < sel_hi) {
+      n_sel += ok ? 1 : 0;
+      const uint32_t key = (__float_as_uint(d2) & kTrunc) | (uint32_t)r;  // NaN: > kInvalidKey
+      if (key < top[CAP - 1]) topk_insert<CAP>(top, key);
     }
+  }
+  hi_full = group_max(gmask, hi_full);
+  if (COUNT2) cnt2 = __reduce_add_sync(gmask, cnt2);
+  if (moments_on) {
+#pragma unroll
+    for (int i = 0; i < 10; ++i) m[i] = group_sum(gmask, m[i]);
   }
 
   const float kf = (float)k;
   float mean, cnt;
-  if (KMODE == 0) {
-    float acc = 0.0f, hits = 0.0f;
+  uint32_t kth = kInvalidKey;
+  double sum_k = 0.0;  // sweep: the distances of the k nearest
+  int hits = 0;
+  if (!bisect) {
+    const uint32_t last = top[CAP - 1];
+    uint32_t kept[CAP];
 #pragma unroll
-    for (int j = 0; j < MAXK; ++j) {
-      if (j < k) {
-        const bool hit = __uint_as_float(top[j]) < kHalfBig;
-        const float dist2 = __uint_as_float(top[j] & kTrunc);
-        acc += hit ? sqrtf(fmaxf(dist2, 0.0f)) : 0.0f;
-        hits += hit ? 1.0f : 0.0f;
+    for (int j = 0; j < CAP; ++j) kept[j] = top[j];
+    kth = group_kth<csel>(gmask, top, k);
+    if (__any_sync(gmask, n_sel > CAP && last < kth)) {
+      // a lane dropped keys below the k-th: find it exactly by k walks for
+      // the next smallest key (rare; no list to hold), and sum by a walk
+      uint32_t floor_key = 0;  // keys below it are taken
+      for (int j = 0; j < k; ++j) {
+        uint32_t best = kInvalidKey;
+        for (int i = sel_lo; i < sel_hi; ++i) {
+          const uint32_t key = (__float_as_uint(d2_at(i)) & kTrunc) | (uint32_t)(lane + kG * i);
+          if (key >= floor_key && key < best) best = key;
+        }
+        kth = group_min<csel>(gmask, best);
+        floor_key = kth + 1;
+      }
+      if (KMODE == 0) {
+        for (int i = sel_lo; i < sel_hi; ++i) {
+          const uint32_t key = (__float_as_uint(d2_at(i)) & kTrunc) | (uint32_t)(lane + kG * i);
+          if (hit_key(key, kth)) {
+            ++hits;
+            sum_k += sqrtf(fmaxf(__uint_as_float(key & kTrunc), 0.0f));
+          }
+        }
+      }
+    } else if (KMODE == 0) {
+#pragma unroll
+      for (int j = 0; j < CAP; ++j) {
+        if (hit_key(kept[j], kth)) {
+          ++hits;
+          sum_k += sqrtf(fmaxf(__uint_as_float(kept[j] & kTrunc), 0.0f));
+        }
       }
     }
-    mean = acc / fmaxf(hits, 1.0f);
-    cnt = hits;
+    if (KMODE == 0) {
+      hits = __reduce_add_sync(gmask, hits);
+      sum_k = group_sum(gmask, sum_k);
+    }
+  }
+  if (KMODE == 0) {
+    cnt = (float)hits;
+    mean = (float)sum_k / fmaxf(cnt, 1.0f);
   } else {
     // threshold select: narrow t until count(d2 <= t) ~= k, then one
     // masked sum with the at-threshold correction. csel compares the
     // truncated d2 (as its own-block k-th is truncated), bisect the
-    // untruncated one.
+    // untruncated one. For d2, t >= 0: trunc(d2) <= t exactly when
+    // d2 <= bits(t) | 2047, so both compare d2 itself; NaN never counts.
+    auto limit = [](float thr) {
+      const uint32_t bits = __float_as_uint(thr);
+      return csel && bits < 0x7F800000u ? __uint_as_float(bits | 2047u) : thr;
+    };
+    auto count_le = [&](float thr) -> int {
+      const float lim = limit(thr);
+      int c = 0;
+      if (cached) {
+        const float2* row = reinterpret_cast<const float2*>(dl);
+#pragma unroll 4
+        for (int i = 0; i < per_lane / 2; ++i) {
+          const float2 v = row[i];
+          c += (v.x <= lim ? 1 : 0) + (v.y <= lim ? 1 : 0);
+        }
+      } else {
+        for (int i = 0; i < per_lane; ++i) c += d2_at(i) <= lim ? 1 : 0;
+      }
+      return __reduce_add_sync(gmask, c);
+    };
     bool sparse = false;
     float lo = 0.0f, hi;
     constexpr int iters = csel ? kCselIters : kBisectIters;
     if (csel) {
-      uint32_t kth = kInvalidKey;
-#pragma unroll
-      for (int j = 0; j < MAXK; ++j) {
-        if (j == k - 1) kth = top[j];
-      }
       sparse = __uint_as_float(kth) >= kHalfBig;
       hi = sparse ? hi_full : __uint_as_float(kth & kTrunc);
     } else {
+      hi_own = group_max(gmask, hi_own);
+      n_own = __reduce_add_sync(gmask, n_own);
       hi = n_own >= k ? hi_own : hi_full;
     }
     for (int it = 0; it < iters; ++it) {
       const float mid = 0.5f * (lo + hi);
-      int c = 0;
-      for (int r = 0; r < span; ++r) {
-        if (!sv[r]) continue;
-        const float dx = sx[r] - qx, dy = sy[r] - qy, dz = sz[r] - qz;
-        const float d2 = dx * dx + dy * dy + dz * dz;
-        c += (csel ? trunc_d2(d2) : d2) <= mid ? 1 : 0;
-      }
-      const bool enough = c >= k;
+      const bool enough = count_le(mid) >= k;
       lo = enough ? lo : mid;
       hi = enough ? mid : hi;
     }
+    const float lim = limit(hi);
     int inside = 0;
     double sum_d = 0.0;
-    for (int r = 0; r < span; ++r) {
-      if (!sv[r]) continue;
-      const float dx = sx[r] - qx, dy = sy[r] - qy, dz = sz[r] - qz;
-      const float d2 = dx * dx + dy * dy + dz * dz;
-      if ((csel ? trunc_d2(d2) : d2) <= hi) {
+#pragma unroll 4
+    for (int i = 0; i < per_lane; ++i) {
+      const float d2 = d2_at(i);
+      if (d2 <= lim) {
         ++inside;
         sum_d += sqrtf(fmaxf(d2, 0.0f));
       }
     }
+    inside = __reduce_add_sync(gmask, inside);
+    sum_d = group_sum(gmask, sum_d);
     const float cntf = (float)inside;
     const float extra = fmaxf(cntf - kf, 0.0f);
     const float thr_d = sqrtf(fmaxf(hi, 0.0f));
@@ -275,91 +460,158 @@ window_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
     cnt = fminf(cntf, kf);
   }
 
-  const int g = blockIdx.x * kB + t;
-  mean_out[g] = mean;
-  cnt_out[g] = cnt;
+  // every lane of the group holds the results; they share the stores
+  const int g = block * kB + q;
+  if (lane == 0) mean_out[g] = mean;
+  if (lane == 1) cnt_out[g] = cnt;
+  if (COUNT2 && lane == 2) cnt2_out[g] = (float)cnt2;
 #pragma unroll
-  for (int i = 0; i < 10; ++i) mom_out[(size_t)i * n + g] = (float)m[i];
-  if (COUNT2) cnt2_out[g] = (float)cnt2;
+  for (int i = 0; i < 10; ++i) {
+    if (i % kG == lane) mom_out[(size_t)i * n + g] = (float)m[i];
+  }
+}
+
+// dynamic shared memory of a CTA: the queries' d2 rows when they are kept
+// (else room for the origin's tree), then the window's x, y, z rows
+size_t window_smem(int wb, int kmode) {
+  const int span = window_span(wb);
+  return ((size_t)lead_floats(kmode, span) + 3 * span) * sizeof(float);
 }
 
 template <int MAXK, int KMODE, bool COUNT2>
-cudaError_t launch(const float* x, const float* y, const float* z,
-                   const uint8_t* valid, const float* r2, float* mean,
-                   float* cnt, float* mom, float* cnt2, int batch, int n,
-                   int k, int wb, int direction, int moments,
-                   cudaStream_t stream) {
-  const int span = wb > 0 ? (2 * wb + 1) * kB : 2 * kB;
-  const size_t smem = (size_t)span * (3 * sizeof(float) + 1);
-  window_stats_kernel<MAXK, KMODE, COUNT2><<<dim3(n / kB, batch), kB, smem, stream>>>(
-      x, y, z, valid, r2, mean, cnt, mom, cnt2, n, k, wb, direction, moments);
+cudaError_t set_attributes() {
+  static bool done = false;  // once per instantiation
+  if (done) return cudaSuccess;
+  auto kernel = window_stats_kernel<MAXK, KMODE, COUNT2>;
+  size_t most = 0;
+  for (int w = 0; w <= kMaxWb; ++w) {
+    const size_t bytes = window_smem(w, KMODE);
+    most = bytes > most ? bytes : most;
+  }
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)most);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  }
+  done = err == cudaSuccess;
+  return err;
+}
+
+// The launch arguments of apc_window_stats.
+struct Args {
+  const float *x, *y, *z;
+  const uint8_t* valid;
+  const float* rad;
+  int rad_stride;
+  const float* rad2;
+  int rad2_stride;
+  float *mean, *cnt, *mom, *cnt2;
+  int batch, n, k, wb, direction, moments;
+};
+
+template <int MAXK, int KMODE, bool COUNT2>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const cudaError_t err = set_attributes<MAXK, KMODE, COUNT2>();
+  if (err != cudaSuccess) return err;
+  window_stats_kernel<MAXK, KMODE, COUNT2>
+      <<<dim3(a.n / kB * kSplit, a.batch), kThreads, window_smem(a.wb, KMODE), stream>>>(
+          a.x, a.y, a.z, a.valid, a.rad, a.rad_stride, a.rad2, a.rad2_stride, a.mean, a.cnt,
+          a.mom, a.cnt2, a.n, a.k, a.wb, a.direction, a.moments);
   return cudaGetLastError();
 }
 
 template <int MAXK, int KMODE>
-cudaError_t launch_count2(const float* x, const float* y, const float* z,
-                          const uint8_t* valid, const float* r2, float* mean,
-                          float* cnt, float* mom, float* cnt2, int batch,
-                          int n, int k, int wb, int direction, int moments,
-                          cudaStream_t stream) {
-  if (cnt2 != nullptr) {
-    return launch<MAXK, KMODE, true>(x, y, z, valid, r2, mean, cnt, mom, cnt2,
-                                     batch, n, k, wb, direction, moments, stream);
-  }
-  return launch<MAXK, KMODE, false>(x, y, z, valid, r2, mean, cnt, mom, cnt2,
-                                    batch, n, k, wb, direction, moments, stream);
+cudaError_t launch_count2(const Args& a, cudaStream_t stream) {
+  return a.cnt2 != nullptr ? launch<MAXK, KMODE, true>(a, stream)
+                           : launch<MAXK, KMODE, false>(a, stream);
 }
 
 template <int MAXK>
-cudaError_t launch_mode(const float* x, const float* y, const float* z,
-                        const uint8_t* valid, const float* r2, float* mean,
-                        float* cnt, float* mom, float* cnt2, int batch, int n,
-                        int k, int wb, int direction, int kmode, int moments,
-                        cudaStream_t stream) {
+cudaError_t launch_mode(const Args& a, int kmode, cudaStream_t stream) {
   switch (kmode) {
     case 0:
-      return launch_count2<MAXK, 0>(x, y, z, valid, r2, mean, cnt, mom, cnt2,
-                                    batch, n, k, wb, direction, moments, stream);
+      return launch_count2<MAXK, 0>(a, stream);
     case 1:
-      return launch_count2<MAXK, 1>(x, y, z, valid, r2, mean, cnt, mom, cnt2,
-                                    batch, n, k, wb, direction, moments, stream);
+      return launch_count2<MAXK, 1>(a, stream);
     default:
-      return launch_count2<MAXK, 2>(x, y, z, valid, r2, mean, cnt, mom, cnt2,
-                                    batch, n, k, wb, direction, moments, stream);
+      return launch_count2<MAXK, 2>(a, stream);
   }
 }
 
 }  // namespace
 
 // Rows x, y, z, valid, mean, cnt [batch, n], mom [batch, 10, n], cnt2
-// [batch, n] or null (no second-radius count); r2 float32[batch, 2] on the
-// device (each scan's squared moment radius and squared second radius);
-// n % 128 == 0, 1 <= k <= 64, 0 <= wb <= 7, kmode 0 sweep, 1 csel, 2 bisect.
+// [batch, n] or null (no second-radius count); rad and rad2 float32 on the
+// device, scan b's moment radius at rad[b * rad_stride] (stride 0: one
+// radius for all) and its second radius likewise (rad2 may be null without
+// cnt2); n % 128 == 0, 1 <= k <= 64, 0 <= wb <= 7, kmode 0 sweep, 1 csel,
+// 2 bisect.
 extern "C" int apc_window_stats(const void* x, const void* y, const void* z,
-                                const void* valid, const void* r2, void* mean,
+                                const void* valid, const void* rad, int rad_stride,
+                                const void* rad2, int rad2_stride, void* mean,
                                 void* cnt, void* mom, void* cnt2, int batch,
                                 int n, int k, int wb, int direction, int kmode,
                                 int moments, void* stream) {
-  const float* fx = static_cast<const float*>(x);
-  const float* fy = static_cast<const float*>(y);
-  const float* fz = static_cast<const float*>(z);
-  const uint8_t* v = static_cast<const uint8_t*>(valid);
-  const float* fr2 = static_cast<const float*>(r2);
-  float* fm = static_cast<float*>(mean);
-  float* fc = static_cast<float*>(cnt);
-  float* fo = static_cast<float*>(mom);
-  float* fc2 = static_cast<float*>(cnt2);
+  const Args a{static_cast<const float*>(x), static_cast<const float*>(y),
+               static_cast<const float*>(z), static_cast<const uint8_t*>(valid),
+               static_cast<const float*>(rad), rad_stride,
+               static_cast<const float*>(rad2), rad2_stride,
+               static_cast<float*>(mean), static_cast<float*>(cnt),
+               static_cast<float*>(mom), static_cast<float*>(cnt2),
+               batch, n, k, wb, direction, moments};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n < kB || batch < 1) return static_cast<int>(cudaGetLastError());
   cudaError_t err;
   if (k <= 8) {
-    err = launch_mode<8>(fx, fy, fz, v, fr2, fm, fc, fo, fc2, batch, n, k, wb, direction, kmode, moments, s);
+    err = launch_mode<8>(a, kmode, s);
   } else if (k <= 16) {
-    err = launch_mode<16>(fx, fy, fz, v, fr2, fm, fc, fo, fc2, batch, n, k, wb, direction, kmode, moments, s);
+    err = launch_mode<16>(a, kmode, s);
   } else if (k <= 32) {
-    err = launch_mode<32>(fx, fy, fz, v, fr2, fm, fc, fo, fc2, batch, n, k, wb, direction, kmode, moments, s);
+    err = launch_mode<32>(a, kmode, s);
   } else {
-    err = launch_mode<64>(fx, fy, fz, v, fr2, fm, fc, fo, fc2, batch, n, k, wb, direction, kmode, moments, s);
+    err = launch_mode<64>(a, kmode, s);
   }
   return static_cast<int>(err);
+}
+
+// Registers and resident CTAs an SM of K3's instantiation `index` (0..23:
+// MAXK 8, 16, 32, 64 x kmode sweep, csel, bisect x count2 off, on), with
+// the shared memory of window `wb`. Returns 0, -1 past the last one, or a
+// CUDA error code.
+extern "C" int apc_window_stats_info(int index, char* name, int name_len,
+                                     int* regs, int* blocks_per_sm, int wb) {
+#define APC_K3(M, K, C)                                                        \
+  {M, K, C, reinterpret_cast<const void*>(&window_stats_kernel<M, K, C>), \
+   &set_attributes<M, K, C>}
+  struct Entry {
+    int maxk, kmode;
+    bool count2;
+    const void* fn;
+    cudaError_t (*prepare)();
+  };
+  const Entry table[] = {
+      APC_K3(8, 0, false), APC_K3(8, 0, true), APC_K3(8, 1, false), APC_K3(8, 1, true),
+      APC_K3(8, 2, false), APC_K3(8, 2, true), APC_K3(16, 0, false), APC_K3(16, 0, true),
+      APC_K3(16, 1, false), APC_K3(16, 1, true), APC_K3(16, 2, false), APC_K3(16, 2, true),
+      APC_K3(32, 0, false), APC_K3(32, 0, true), APC_K3(32, 1, false), APC_K3(32, 1, true),
+      APC_K3(32, 2, false), APC_K3(32, 2, true), APC_K3(64, 0, false), APC_K3(64, 0, true),
+      APC_K3(64, 1, false), APC_K3(64, 1, true), APC_K3(64, 2, false), APC_K3(64, 2, true),
+  };
+#undef APC_K3
+  if (index < 0 || index >= static_cast<int>(sizeof(table) / sizeof(table[0]))) return -1;
+  const Entry& e = table[index];
+  cudaFuncAttributes attr;
+  cudaError_t err = e.prepare();  // the launch's shared-memory attributes
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, e.fn);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, e.fn, kThreads,
+                                                        window_smem(wb, e.kmode));
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  static const char* const modes[] = {"sweep", "csel", "bisect"};
+  snprintf(name, name_len, "K3 window_stats<MAXK=%d,%s%s>", e.maxk, modes[e.kmode],
+           e.count2 ? ",count2" : "");
+  return 0;
 }

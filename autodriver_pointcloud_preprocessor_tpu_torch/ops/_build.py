@@ -28,7 +28,7 @@ from typing import Dict, Optional
 import torch
 
 __all__ = [
-    "LAUNCHES", "build_seconds", "check", "load_library", "require_cuda",
+    "LAUNCHES", "build_seconds", "check", "kernel_info", "load_library", "require_cuda",
     "reset_launches", "stream_handle",
 ]
 
@@ -57,12 +57,16 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # values, mask, out, scratch, batch, c, n, capacity, stream
     "apc_masked_compact": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # values, run_start, out, scratch, batch, c, n, stream
-    "apc_segmented_sums": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # x, y, z, valid, r2, mean, cnt, mom, cnt2, batch, n, k, wb,
-    # direction, kmode, moments, stream
-    "apc_window_stats": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # values, run_start, out, batch, c, n, stream
+    "apc_segmented_sums": (_P, _P, _P, _I, _I, _I, _P),
+    # x, y, z, valid, rad, rad_stride, rad2, rad2_stride, mean, cnt, mom,
+    # cnt2, batch, n, k, wb, direction, kmode, moments, stream
+    "apc_window_stats": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _P),
+    # index, name buffer, its length, registers, CTAs an SM (kernel_info)
+    "apc_segmean_info": (_I, ctypes.c_char_p, _I, _P, _P),
+    # the same, and the window blocks that set K3's shared memory
+    "apc_window_stats_info": (_I, ctypes.c_char_p, _I, _P, _P, _I),
 }
 
 
@@ -134,6 +138,25 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def kernel_info(window_blocks: int = 1) -> Dict[str, Dict[str, int]]:
+    """{kernel instantiation: {"regs": registers a thread, "ctas_per_sm":
+    resident CTAs an SM}} of every kernel in the library, at the block
+    size each is launched with (K3's shared memory at ``window_blocks``)."""
+    lib = load_library()
+    info = {}
+    for fn, extra in ((lib.apc_segmean_info, ()),
+                      (lib.apc_window_stats_info, (window_blocks,))):
+        for index in range(1024):
+            name = ctypes.create_string_buffer(96)
+            regs, ctas = ctypes.c_int(0), ctypes.c_int(0)
+            err = fn(index, name, len(name), ctypes.addressof(regs), ctypes.addressof(ctas), *extra)
+            if err == -1:
+                break
+            check(err, "kernel_info")
+            info[name.value.decode()] = {"regs": regs.value, "ctas_per_sm": ctas.value}
+    return info
+
+
 def check(err: int, name: str) -> None:
     """Raise when a C entry point returned a CUDA error code."""
     if err != 0:
@@ -141,15 +164,17 @@ def check(err: int, name: str) -> None:
 
 
 def stream_handle(device: torch.device) -> int:
-    """Raw handle of PyTorch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """Raw handle of PyTorch's current stream on ``device`` (the raw query
+    skips building a Stream object: a launch's host time matters here)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Check that every tensor is contiguous and on one CUDA device."""
-    dev = tensors[0].device
+    """Check that every tensor is contiguous and on one CUDA device (cheap
+    attribute reads only: this runs on every launch)."""
+    index = tensors[0].get_device()
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if not t.is_cuda or t.get_device() != index:
             raise ValueError(f"{name}: all tensors must be on one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")

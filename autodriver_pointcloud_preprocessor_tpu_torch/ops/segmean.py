@@ -34,11 +34,14 @@ def _check_rows(name: str, values: torch.Tensor, flags: torch.Tensor, dtypes):
         )
     if values.dtype not in dtypes:
         raise ValueError(f"{name}: values dtype {values.dtype} not in {dtypes}")
-    if flags.dtype != torch.bool or flags.shape != values.shape[:-2] + values.shape[-1:]:
-        raise ValueError(f"{name}: flags must be bool{list(values.shape[:-2] + values.shape[-1:])}")
+    vshape, fshape = values.shape, flags.shape
+    if flags.dtype != torch.bool or len(fshape) != len(vshape) - 1 or fshape[-1] != vshape[-1] or (
+        len(vshape) == 3 and fshape[0] != vshape[0]
+    ):
+        raise ValueError(f"{name}: flags must be bool{list(vshape[:-2] + vshape[-1:])}")
     if values.device != flags.device:
         raise ValueError(f"{name}: values and flags on different devices")
-    return (values.shape[0] if values.dim() == 3 else 1), values.shape[-2], values.shape[-1]
+    return (vshape[0] if len(vshape) == 3 else 1), vshape[-2], vshape[-1]
 
 
 def masked_compact_plain(
@@ -131,17 +134,17 @@ def segmented_sums(values: torch.Tensor, run_start: torch.Tensor) -> torch.Tenso
     batch, c, n = _check_rows("segmented_sums", values, run_start, (torch.float32,))
     if n == 0:
         return values.clone()
-    if values.device.type == "cpu":
-        return segmented_sums_plain(values, run_start)
-    _build.require_cuda("segmented_sums", values, run_start)
+    if not values.is_cuda:
+        if values.device.type == "cpu":
+            return segmented_sums_plain(values, run_start)
+        raise ValueError("segmented_sums: tensors must be on the CPU or one CUDA device")
+    if not (values.is_contiguous() and run_start.is_contiguous()):
+        raise ValueError("segmented_sums: tensors must be contiguous")
     lib = _build.load_library()
-    dev = values.device
-    out = torch.zeros_like(values)
-    tiles = -(-n // _TILE)
-    scratch = torch.empty(batch * (2 * tiles + 1 + n), dtype=torch.int32, device=dev)
+    out = torch.empty_like(values)  # the kernel writes every column
     err = lib.apc_segmented_sums(
         values.data_ptr(), run_start.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), batch, c, n, _build.stream_handle(dev),
+        batch, c, n, _build.stream_handle(values.device),
     )
     _build.check(err, "segmented_sums")
     _build.LAUNCHES["segmented_sums"] += 1

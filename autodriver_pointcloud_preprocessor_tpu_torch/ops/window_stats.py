@@ -245,26 +245,29 @@ def window_stats(
         raise ValueError(f"window_stats: valid must be bool{list(shape)}")
     batch, n = (shape[0] if len(shape) == 2 else 1), shape[-1]
     dev = sorted_x.device
-    # per-scan squared radii [batch, 2]: the moment radius and the second
-    # radius; without one the moment radius fills the unread column (no new
-    # device scalar: a host scalar's copy would synchronise the stream)
-    rad = _squared_per_scan(radius, batch, dev)
-    r2 = torch.stack(
-        [rad, rad if radius2 is None else _squared_per_scan(radius2, batch, dev)], dim=-1
-    )
-    if dev.type == "cpu":
+    if not sorted_x.is_cuda:
+        if dev.type != "cpu":
+            raise ValueError("window_stats: tensors must be on the CPU or one CUDA device")
+        rad = _per_scan(radius, batch, dev)
+        rad2 = None if radius2 is None else _per_scan(radius2, batch, dev)
         return window_stats_plain(
-            *rows, sorted_valid, r2[:, 0], k, window_blocks, kmode, direction, moments,
-            None if radius2 is None else r2[:, 1],
+            *rows, sorted_valid, rad * rad, k, window_blocks, kmode, direction, moments,
+            None if rad2 is None else rad2 * rad2,
         )
-    _build.require_cuda("window_stats", *rows, sorted_valid, r2)
+    _build.require_cuda("window_stats", *rows, sorted_valid)
     lib = _build.load_library()
+    # one radius, or one per scan: the kernel squares it (no host scalar
+    # goes to the device here: its copy would synchronise the stream)
+    rad = _per_scan(radius, batch, dev)
+    rad2 = None if radius2 is None else _per_scan(radius2, batch, dev)
     mean = torch.empty(shape, dtype=torch.float32, device=dev)
     cnt = torch.empty(shape, dtype=torch.float32, device=dev)
     mom = torch.empty(shape[:-1] + (10, n), dtype=torch.float32, device=dev)
     cnt2 = None if radius2 is None else torch.empty(shape, dtype=torch.float32, device=dev)
     err = lib.apc_window_stats(
-        *(r.data_ptr() for r in rows), sorted_valid.data_ptr(), r2.data_ptr(),
+        *(r.data_ptr() for r in rows), sorted_valid.data_ptr(),
+        rad.data_ptr(), int(rad.numel() > 1),
+        None if rad2 is None else rad2.data_ptr(), int(rad2 is not None and rad2.numel() > 1),
         mean.data_ptr(), cnt.data_ptr(), mom.data_ptr(),
         None if cnt2 is None else cnt2.data_ptr(),
         batch, n, k, window_blocks, direction, _KMODES[kmode], int(moments),
@@ -275,10 +278,10 @@ def window_stats(
     return (mean, cnt, mom) if cnt2 is None else (mean, cnt, mom, cnt2)
 
 
-def _squared_per_scan(radius, batch: int, dev) -> torch.Tensor:
-    """A radius (float, 0-d tensor or one per scan) -> float32[batch] of
-    its squares."""
+def _per_scan(radius, batch: int, dev) -> torch.Tensor:
+    """A radius (float, 0-d tensor or one per scan) -> float32[1] or
+    [batch] on ``dev``."""
     rad = torch.as_tensor(radius, dtype=torch.float32, device=dev).reshape(-1)
     if rad.numel() not in (1, batch):
         raise ValueError(f"window_stats: {rad.numel()} radii for {batch} scans")
-    return (rad * rad).expand(batch)
+    return rad

@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-1. Builds the hand-written CUDA kernels from ``csrc/`` (nvcc, first use).
+1. Builds the hand-written CUDA kernels from ``csrc/`` (nvcc, first use)
+   and prints each kernel's registers and resident CTAs an SM.
 2. Holds each kernel against its plain PyTorch version, run on a CPU copy
-   of the same inputs, at the shapes the production pipeline gives it.
+   of the same inputs, at the shapes the production pipeline gives it (K1
+   and K2 bit for bit).
 3. Batch axis, at B=8 with the main path's shapes from 8 bench scenes
    (seeds 0-7): each batched kernel equals its unbatched launch on every
    element bit for bit, and its plain version on a CPU copy under the
@@ -183,7 +185,8 @@ def k2_work(values, flags):
     return 2 * values.numel() * 4 + flags.numel(), float(values.numel())
 
 
-def k3_work(rows, k, wb, direction, moments, mom0, kmode="csel", radius2=False):
+def k3_work(rows, k, wb, direction, moments, mom0, kmode="csel", radius2=False,
+            csel_compares=True):
     """Bytes and FLOPs of one K3 pass on this run's rows: 8 FLOPs (3 sub,
     3 mul, 2 add) for the distance of every valid (query, candidate) pair
     of a window, a square root and an add for each of the k kept
@@ -191,8 +194,11 @@ def k3_work(rows, k, wb, direction, moments, mom0, kmode="csel", radius2=False):
     every in-radius pair of the moments (``mom0``: the in-radius counts the
     pass gave). ``radius2``: one compare per valid pair for the second
     radius's count. ``kmode='bisect'``: 14 compares per valid pair (13
-    bisections and the final masked sum) on distances counted once.
-    Bytes: 13 read and 48 written per row, 4 more with ``radius2``."""
+    bisections and the final masked sum), ``kmode='csel'``: 3 (2
+    refinements and the final masked sum; ``csel_compares=False`` leaves
+    them out, as the count before this correction did), on distances
+    counted once. Bytes: 13 read and 48 written per row, 4 more with
+    ``radius2``."""
     x, y, z, valid = rows
     n = x.shape[-1]
     ok = (valid & torch.isfinite(x) & torch.isfinite(y) & torch.isfinite(z)).reshape(-1, n)
@@ -201,7 +207,8 @@ def k3_work(rows, k, wb, direction, moments, mom0, kmode="csel", radius2=False):
     padded = torch.nn.functional.pad(per_block, (-lo, hi))
     window = sum(padded[:, s : s + per_block.shape[1]] for s in range(hi - lo + 1))
     pairs = float((per_block * window).sum())
-    per_pair = 8 + (14 if kmode == "bisect" else 0) + (1 if radius2 else 0)
+    compares = {"bisect": 14, "csel": 3 if csel_compares else 0}.get(kmode, 0)
+    per_pair = 8 + compares + (1 if radius2 else 0)
     flops = per_pair * pairs + 2 * k * float(ok.sum())
     if moments:
         flops += 19 * float(mom0.reshape(ok.shape)[ok].double().sum())
@@ -619,6 +626,9 @@ def main() -> None:
     _build.load_library()
     print(f"[chip_smoke] kernel build+load {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds():.2f} s)")
+    info = _build.kernel_info(window_blocks=1)
+    print(f"[chip_smoke] registers a thread and resident CTAs an SM of each kernel "
+          f"(K3's shared memory at wb=1): {json.dumps(info)}")
 
     cfg = PRODUCTION_128K_CONFIG
     settings = settings_from_config(cfg)
@@ -681,9 +691,8 @@ def main() -> None:
     max_err["masked_compact"] = 0.0
     out = segmented_sums(k2_vals, k2_flags).cpu()
     ref = segmented_sums_plain(k2_vals.cpu(), k2_flags.cpu())
-    err = (out - ref).abs()
-    check(bool((err <= 1e-6 * ref.abs()).all()), "K2 segmented_sums differs beyond rtol 1e-6")
-    max_err["segmented_sums"] = float(err.max())
+    check(torch.equal(bits(out), bits(ref)), "K2 segmented_sums is not bit-equal to its plain version")
+    max_err["segmented_sums"] = float((out - ref).abs().max())
     max_err["window_stats"] = max(
         check_k3_plain(tag, window_stats(*k3_rows[tag], params.search_radius, **kw),
                        k3_rows[tag], kw, params.search_radius)
@@ -712,9 +721,8 @@ def main() -> None:
         check(torch.equal(bits(out[i]), bits(segmented_sums(b2_vals[i], b2_flags[i]))),
               f"batched K2: element {i} differs from its unbatched launch")
     ref = segmented_sums_plain(b2_vals.cpu(), b2_flags.cpu())
-    err = (out.cpu() - ref).abs()
-    check(bool((err <= 1e-6 * ref.abs()).all()), "batched K2 differs beyond rtol 1e-6")
-    batch_err["segmented_sums"] = float(err.max())
+    check(torch.equal(bits(out), bits(ref)), "batched K2 is not bit-equal to its batched plain version")
+    batch_err["segmented_sums"] = float((out.cpu() - ref).abs().max())
     k3_err = 0.0
     for tag, kw in k3_passes.items():
         rows = b3_rows[tag]
@@ -869,7 +877,7 @@ def main() -> None:
                                 lambda: segmented_sums_plain(vals2, flags2))
         lib = event_ms(lambda: torch.zeros_like(flat).index_add_(1, ids, flat), 20)
         res["segmented_sums"] = (km, pm, lib, *bound(*k2_work(vals2, flags2)))
-        k3_km, k3_pm, nbytes, flops = 0.0, 0.0, 0.0, 0.0
+        k3_km, k3_pm, nbytes, flops, flops_pr3 = 0.0, 0.0, 0.0, 0.0, 0.0
         for p, kw in k3_passes.items():
             rows = rows3[p]
             km, pm = interleaved_ms(
@@ -881,10 +889,14 @@ def main() -> None:
             )
             mom0 = window_stats(*rows, params.search_radius, **kw)[2][..., 0, :]
             b, f = k3_work(rows, kw["k"], kw["window_blocks"], kw["direction"], kw["moments"], mom0)
+            flops_pr3 += k3_work(rows, kw["k"], kw["window_blocks"], kw["direction"], kw["moments"],
+                                 mom0, csel_compares=False)[1]
             nbytes, flops = nbytes + b, flops + f
             k3_km, k3_pm = k3_km + km, k3_pm + pm
             print(f"[chip_smoke] K3 {tag} {p}: kernel {km:.4f} ms, plain {pm:.4f} ms")
         res["window_stats"] = (k3_km, k3_pm, None, *bound(nbytes, flops))
+        print(f"[chip_smoke] window_stats {tag}: bound {res['window_stats'][3]:.4f} ms with csel's "
+              f"3 compares a pair, {bound(nbytes, flops_pr3)[0]:.4f} ms without them (PR 3's count)")
         for k, (km, pm, lib, bms, by) in res.items():
             lib_txt = "none" if lib is None else f"{lib:.4f} ms"
             print(f"[chip_smoke] {k} {tag}: kernel {km:.4f} ms, plain torch {pm:.4f} ms, "

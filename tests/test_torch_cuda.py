@@ -247,3 +247,100 @@ def test_pipeline_on_card_matches_cpu(cuda):
         outs.append({tuple(r) for r in np.round(to_soa(out, meta)["positions"], 5).tolist()})
     jaccard = len(outs[0] & outs[1]) / len(outs[0] | outs[1])
     assert jaccard >= 0.99, jaccard
+
+
+def _k2_case(name):
+    """(values [C, N] or [B, C, N], run-start flags) of a K2 card case."""
+    rng = _rng(len(name))
+    if name == "b8_run_counts":
+        n = 65536
+        density = np.array([0.0, 0.01, 0.1, 0.3, 0.5, 0.7, 0.9, 1.0])[:, None]
+        flags = rng.uniform(size=(8, n)) < density
+        return rng.normal(0, 3, (8, 6, n)).astype(np.float32), flags
+    n = {"cross_tiles": 20000, "one_run": 65536, "all_starts": 65536, "ragged": 3 * 4096 + 77}[name]
+    flags = {
+        "cross_tiles": rng.uniform(size=n) < 0.2,
+        "one_run": np.zeros(n, dtype=bool),
+        "all_starts": np.ones(n, dtype=bool),
+        "ragged": rng.uniform(size=n) < 0.3,
+    }[name]
+    if name == "cross_tiles":
+        flags[3000:13001] = False  # one run over columns 2999..13000: four CTA tiles
+    return rng.normal(0, 3, (6, n)).astype(np.float32), flags
+
+
+@pytest.mark.parametrize("name", ["cross_tiles", "one_run", "all_starts", "ragged", "b8_run_counts"])
+def test_segmented_sums_one_launch_is_bit_equal(cuda, name):
+    vals, flags = _k2_case(name)
+    v, f = torch.from_numpy(vals), torch.from_numpy(flags)
+    want = segmented_sums_plain(v, f)
+    # leave NaN in the allocator's cache: the kernel must write every column
+    torch.full((vals.size * 2,), float("nan"), device=cuda)
+    vd, fd = v.to(cuda), f.to(cuda)
+    before = _build.LAUNCHES["segmented_sums"]
+    got = segmented_sums(vd, fd)
+    assert _build.LAUNCHES["segmented_sums"] == before + 1
+    assert torch.equal(_bits(got), _bits(want))
+    if vals.ndim == 3:  # each element equals its unbatched launch
+        for i in range(vals.shape[0]):
+            assert torch.equal(_bits(got[i]), _bits(segmented_sums(vd[i], fd[i])))
+
+
+def _k3_rows(seed, n=8192):
+    """Clustered rows in sort order, 5% invalid, a dead tail, NaN rows and
+    one block with only 5 valid rows (fewer than k: csel's sparse path)."""
+    rng = _rng(seed)
+    pts = (rng.uniform(-5, 5, (16, 3))[rng.integers(0, 16, n)]
+           + rng.normal(0, 0.4, (n, 3))).astype(np.float32)
+    pts = pts[np.lexsort(pts.T[::-1])]
+    valid = rng.uniform(size=n) < 0.95
+    valid[-300:] = False
+    valid[1024:1152] = False
+    valid[1024:1029] = True
+    pts[rng.integers(0, n, 10)] = np.nan
+    rows = [torch.from_numpy(np.ascontiguousarray(pts[:, i])) for i in range(3)]
+    return rows, torch.from_numpy(valid), torch.from_numpy(valid & np.isfinite(pts).all(1))
+
+
+def _check_k3(cuda, rows, valid, v, args):
+    want = window_stats(*rows, valid, 0.3, **args)
+    before = _build.LAUNCHES["window_stats"]
+    got = window_stats(*(r.to(cuda) for r in rows), valid.to(cuda), 0.3, **args)
+    assert _build.LAUNCHES["window_stats"] == before + 1
+    got = [t.cpu() for t in got]
+    assert len(got) == len(want)
+    rel = (got[0] - want[0]).abs() / want[0].abs().clamp(min=1e-12)
+    assert float((rel[v] <= 1e-5).float().mean()) >= 0.999
+    assert torch.equal(got[1][v], want[1][v])
+    assert torch.equal(got[2][0][v], want[2][0][v])
+    torch.testing.assert_close(got[2][:, v], want[2][:, v], rtol=1e-4, atol=1e-3)
+    if len(got) == 4:
+        assert torch.equal(got[3][v], want[3][v])
+    # batched (the rows and their reverse): each element equals its lone launch
+    rows2 = [torch.stack([r, r.flip(0)]).to(cuda) for r in rows]
+    valid2 = torch.stack([valid, valid.flip(0)]).to(cuda)
+    both = window_stats(*rows2, valid2, 0.3, **args)
+    for i in range(2):
+        alone = window_stats(*(r[i] for r in rows2), valid2[i], 0.3, **args)
+        for g, a in zip(both, alone):
+            assert torch.equal(_bits(g[i]), _bits(a))
+
+
+@pytest.mark.parametrize("kmode", ["sweep", "csel", "bisect"])
+@pytest.mark.parametrize("radius2", [None, 0.45])
+@pytest.mark.parametrize("moments", [True, False])
+def test_window_stats_every_mode_matches_plain(cuda, kmode, radius2, moments):
+    rows, valid, v = _k3_rows(7)
+    _check_k3(cuda, rows, valid, v, dict(k=20, window_blocks=1, kmode=kmode, direction=0,
+                                         moments=moments, radius2=radius2))
+
+
+@pytest.mark.parametrize(
+    "kmode,wb,direction,k",
+    [("sweep", 1, 0, 64), ("csel", 1, 0, 64), ("bisect", 0, 1, 64), ("sweep", 7, 0, 20),
+     ("csel", 7, 0, 33), ("bisect", 7, 0, 12), ("csel", 0, 0, 5), ("sweep", 2, 0, 1)],
+)
+def test_window_stats_wide_windows_and_large_k_match_plain(cuda, kmode, wb, direction, k):
+    rows, valid, v = _k3_rows(11 + k + wb)
+    _check_k3(cuda, rows, valid, v, dict(k=k, window_blocks=wb, kmode=kmode,
+                                         direction=direction, moments=True, radius2=0.45))
