@@ -250,12 +250,12 @@ extern "C" int apc_segmented_sums(const void* values, const void* run_start,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Registers and resident CTAs an SM of this file's kernel instantiation
-// `index` (0: K1's tile counts, 1: K1's offset scan, 2: K1's scatter, 3:
-// K2), at the block size each is launched with. Returns 0, -1 past the
-// last one, or a CUDA error code.
-extern "C" int apc_segmean_info(int index, char* name, int name_len,
-                                int* regs, int* blocks_per_sm) {
+// Registers, resident CTAs an SM and local memory (spills) a thread of
+// this file's kernel instantiation `index` (0: K1's tile counts, 1: K1's
+// offset scan, 2: K1's scatter, 3: K2), at the block size each is launched
+// with. Returns 0, -1 past the last one, or a CUDA error code.
+extern "C" int apc_segmean_info(int index, char* name, int name_len, int* regs,
+                                int* blocks_per_sm, int* local_bytes) {
   using namespace apc;
   struct Entry {
     const char* name;
@@ -277,6 +277,7 @@ extern "C" int apc_segmean_info(int index, char* name, int name_len,
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
   snprintf(name, name_len, "%s", e.name);
   return 0;
 }

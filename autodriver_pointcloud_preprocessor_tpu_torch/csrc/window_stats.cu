@@ -51,8 +51,12 @@
 //     same fixed-order tree, so no output depends on the split.
 //   * csel and bisect keep each query's d2 row in shared memory (50 KB a
 //     CTA at wb=1, 4 CTAs an SM; only up to wb=2) and walk it with 8-byte
-//     loads for their 3 and 14 threshold walks. csel's truncated compare
-//     trunc(d2) <= t is the plain compare d2 <= bits(t) | 2047.
+//     loads for their 3 and 14 threshold walks. On an H100 (kernel_ab.py)
+//     recomputing d2 in each walk instead took 1.9x the time for config
+//     2's bisect and 1.1-1.3x for production's csel, and 1.03x for the
+//     QUALITY preset's wb=2 csel, where the cache allows 2 CTAs an SM.
+//     csel's truncated compare trunc(d2) <= t is the plain compare
+//     d2 <= bits(t) | 2047.
 //   * Counts (the threshold walks, the moment count, the second-radius
 //     count) are exact integer sums over the group (__reduce_add_sync).
 //     Moment and distance sums accumulate in double in each lane and
@@ -84,8 +88,13 @@ constexpr int kQ = kThreads / kG;         // queries per CTA
 constexpr int kSplit = kB / kQ;           // CTAs per 128-row block
 constexpr int kMaxWb = 7;
 // csel and bisect keep each query's d2 row in shared memory for their
-// threshold walks up to this window (wb <= 2)
-constexpr int kCacheSpan = 5 * kB;
+// threshold walks up to this window (wb <= 2); built with
+// -DAPC_D2_CACHE_ROWS=0 they recompute it in every walk (kernel_ab.py
+// times the two against each other)
+#ifndef APC_D2_CACHE_ROWS
+#define APC_D2_CACHE_ROWS (5 * 128)
+#endif
+constexpr int kCacheSpan = APC_D2_CACHE_ROWS;
 constexpr float kHalfBig = 5e29f;             // the reference's _BIG / 2
 constexpr uint32_t kInvalidKey = 0x7F800000u;  // +inf: after every finite d2
 constexpr uint32_t kTrunc = ~2047u;
@@ -575,12 +584,12 @@ extern "C" int apc_window_stats(const void* x, const void* y, const void* z,
   return static_cast<int>(err);
 }
 
-// Registers and resident CTAs an SM of K3's instantiation `index` (0..23:
-// MAXK 8, 16, 32, 64 x kmode sweep, csel, bisect x count2 off, on), with
-// the shared memory of window `wb`. Returns 0, -1 past the last one, or a
-// CUDA error code.
-extern "C" int apc_window_stats_info(int index, char* name, int name_len,
-                                     int* regs, int* blocks_per_sm, int wb) {
+// Registers, resident CTAs an SM and local memory (spills) a thread of
+// K3's instantiation `index` (0..23: MAXK 8, 16, 32, 64 x kmode sweep,
+// csel, bisect x count2 off, on), with the shared memory of window `wb`.
+// Returns 0, -1 past the last one, or a CUDA error code.
+extern "C" int apc_window_stats_info(int index, char* name, int name_len, int* regs,
+                                     int* blocks_per_sm, int* local_bytes, int wb) {
 #define APC_K3(M, K, C)                                                        \
   {M, K, C, reinterpret_cast<const void*>(&window_stats_kernel<M, K, C>), \
    &set_attributes<M, K, C>}
@@ -610,6 +619,7 @@ extern "C" int apc_window_stats_info(int index, char* name, int name_len,
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
   static const char* const modes[] = {"sweep", "csel", "bisect"};
   snprintf(name, name_len, "K3 window_stats<MAXK=%d,%s%s>", e.maxk, modes[e.kmode],
            e.count2 ? ",count2" : "");

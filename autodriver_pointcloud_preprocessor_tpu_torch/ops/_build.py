@@ -23,7 +23,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -63,10 +63,11 @@ _SIGNATURES = {
     # cnt2, batch, n, k, wb, direction, kmode, moments, stream
     "apc_window_stats": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _P),
-    # index, name buffer, its length, registers, CTAs an SM (kernel_info)
-    "apc_segmean_info": (_I, ctypes.c_char_p, _I, _P, _P),
+    # index, name buffer, its length, registers, CTAs an SM, local bytes
+    # (kernel_info)
+    "apc_segmean_info": (_I, ctypes.c_char_p, _I, _P, _P, _P),
     # the same, and the window blocks that set K3's shared memory
-    "apc_window_stats_info": (_I, ctypes.c_char_p, _I, _P, _P, _I),
+    "apc_window_stats_info": (_I, ctypes.c_char_p, _I, _P, _P, _P, _I),
 }
 
 
@@ -94,18 +95,23 @@ def _check_nvcc(cmd, returncode: int, out: str, err: str) -> None:
         raise RuntimeError(f"nvcc failed ({returncode}): {' '.join(cmd)}\n{out}\n{err}")
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (when needed) and load the kernel library; raises on failure."""
+def load_library(extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
+    """Build (when needed) and load the kernel library; raises on failure.
+
+    ``extra_flags`` go to every nvcc call (``kernel_ab.py`` passes a
+    ``-D`` that selects a kernel variant to time); the first load in a
+    process decides, later calls return the loaded library."""
     global _lib, _build_seconds
     if _lib is not None:
         return _lib
+    flags = (*NVCC_FLAGS, *extra_flags)
     sources = sorted(CSRC.glob("*.cu"))
     headers = sorted(CSRC.glob("*.cuh"))
     digest = hashlib.sha256()
     for path in sources + headers:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     target = BUILD_DIR / f"libapc_kernels_{digest.hexdigest()[:16]}.so"
     t0 = time.perf_counter()
     if not target.exists():
@@ -113,7 +119,7 @@ def load_library() -> ctypes.CDLL:
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
             compiles = [
-                [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                [_nvcc(), *flags, "-c", "-o", obj, str(src)]
                 for src, obj in zip(sources, objs)
             ]
             procs = [
@@ -124,7 +130,7 @@ def load_library() -> ctypes.CDLL:
             for cmd, proc, (out, err) in zip(compiles, procs, outputs):
                 _check_nvcc(cmd, proc.returncode, out, err)
             lib_tmp = str(Path(tmp) / target.name)
-            link = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs]
+            link = [_nvcc(), *flags, "-shared", "-o", lib_tmp, *objs]
             proc = subprocess.run(link, capture_output=True, text=True)
             _check_nvcc(link, proc.returncode, proc.stdout, proc.stderr)
             os.replace(lib_tmp, target)  # atomic: concurrent builds are safe
@@ -140,20 +146,23 @@ def load_library() -> ctypes.CDLL:
 
 def kernel_info(window_blocks: int = 1) -> Dict[str, Dict[str, int]]:
     """{kernel instantiation: {"regs": registers a thread, "ctas_per_sm":
-    resident CTAs an SM}} of every kernel in the library, at the block
-    size each is launched with (K3's shared memory at ``window_blocks``)."""
+    resident CTAs an SM, "local_bytes": local memory a thread (spills)}} of
+    every kernel in the library, at the block size each is launched with
+    (K3's shared memory at ``window_blocks``)."""
     lib = load_library()
     info = {}
     for fn, extra in ((lib.apc_segmean_info, ()),
                       (lib.apc_window_stats_info, (window_blocks,))):
         for index in range(1024):
             name = ctypes.create_string_buffer(96)
-            regs, ctas = ctypes.c_int(0), ctypes.c_int(0)
-            err = fn(index, name, len(name), ctypes.addressof(regs), ctypes.addressof(ctas), *extra)
+            regs, ctas, local = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+            err = fn(index, name, len(name), ctypes.addressof(regs), ctypes.addressof(ctas),
+                     ctypes.addressof(local), *extra)
             if err == -1:
                 break
             check(err, "kernel_info")
-            info[name.value.decode()] = {"regs": regs.value, "ctas_per_sm": ctas.value}
+            info[name.value.decode()] = {"regs": regs.value, "ctas_per_sm": ctas.value,
+                                         "local_bytes": local.value}
     return info
 
 

@@ -627,8 +627,8 @@ def main() -> None:
     print(f"[chip_smoke] kernel build+load {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds():.2f} s)")
     info = _build.kernel_info(window_blocks=1)
-    print(f"[chip_smoke] registers a thread and resident CTAs an SM of each kernel "
-          f"(K3's shared memory at wb=1): {json.dumps(info)}")
+    print(f"[chip_smoke] registers a thread, resident CTAs an SM and local bytes a thread "
+          f"(spills) of each kernel (K3's shared memory at wb=1): {json.dumps(info)}")
 
     cfg = PRODUCTION_128K_CONFIG
     settings = settings_from_config(cfg)

@@ -257,7 +257,7 @@ def _k2_case(name):
         density = np.array([0.0, 0.01, 0.1, 0.3, 0.5, 0.7, 0.9, 1.0])[:, None]
         flags = rng.uniform(size=(8, n)) < density
         return rng.normal(0, 3, (8, 6, n)).astype(np.float32), flags
-    n = {"cross_tiles": 20000, "one_run": 65536, "all_starts": 65536, "ragged": 3 * 4096 + 77}[name]
+    n = {"cross_tiles": 20000, "one_run": 65536, "all_starts": 65536, "ragged": 6 * 2048 + 77}[name]
     flags = {
         "cross_tiles": rng.uniform(size=n) < 0.2,
         "one_run": np.zeros(n, dtype=bool),
@@ -265,7 +265,7 @@ def _k2_case(name):
         "ragged": rng.uniform(size=n) < 0.3,
     }[name]
     if name == "cross_tiles":
-        flags[3000:13001] = False  # one run over columns 2999..13000: four CTA tiles
+        flags[3000:13001] = False  # one run over columns 2999..13000: six 2048-column CTA tiles
     return rng.normal(0, 3, (6, n)).astype(np.float32), flags
 
 
