@@ -5,44 +5,87 @@
 // served both through masked_compact_pallas (compact=True) and
 // segmented_sums_pallas (compact=False). The TPU version computed ranks
 // and run ids with triangular and one-hot MXU matmuls and carried open
-// runs across a sequential grid; none of that carries over. K1 is a
-// three-phase flag scan (scan.cuh) followed by a scatter; K2 is one
-// kernel.
+// runs across a sequential grid; none of that carries over. Each is one
+// launch on a (tiles, batch) grid of 1024-thread CTAs with no scratch and
+// no memset: a CTA counts the flags of its scan outside its own tile
+// itself (flags.cuh: 16-byte loads, from L2 after the first CTA), so it
+// knows its tile's offset and the scan's total without any protocol
+// between CTAs, and writes the zeros of its share of the output.
 //
-// K1 apc_masked_compact: out[:, rank(j)] = values[:, j] for every live
-//   column j with rank(j) < capacity, rank = exclusive count of live
-//   columns before j. Values are copied as 32-bit words, so floats (NaN
-//   included) and int32 rows pass bit for bit; dead columns are never
-//   read into the output. Bound on the H100: bytes (C reads and C writes
-//   of 4 bytes per live column, 1 byte of mask per column, twice) and, at
-//   the main path's 131072 x 5, the launch latency of its three kernels.
-//   Writes of consecutive ranks are consecutive addresses within a warp.
+// K1 apc_masked_compact: for each of up to 16 rows of 32-bit words (a row
+//   table of source and destination pointers with a batch stride each,
+//   passed by value as a kernel parameter), dst[rank(j)] = src[j] for every
+//   live column j with rank(j) < capacity, rank = exclusive count of live
+//   columns before j in the same scan; columns from min(live, capacity) to
+//   capacity are zero, and mask_out[r] = r < min(live, capacity). Words are
+//   copied as they are, so floats (NaN included) and int32 rows pass bit
+//   for bit. A CTA holds APC_K1_TILE columns (default 2048, 64 CTAs a
+//   131072-column scan; a build flag, so kernel_ab.py can time others):
+//   thread t owns columns t + 1024 i, starts the loads of its words of the
+//   first rows before it counts (so they overlap the counting), ranks them
+//   with warp ballots and one warp's scan of the per-(column group, warp)
+//   counts, and stores them: a warp's store covers 32 consecutive columns,
+//   whose live ones have consecutive ranks, so consecutive addresses.
+//   Bound on the H100: bytes (each row read once and written once at
+//   capacity, the mask read once), but at the main path's 5 x 131072 ->
+//   65536 (4 MB a scan) one launch's latency and each CTA's chain of
+//   dependent steps (loads, the mask count, which reads N bytes from L2 a
+//   CTA, two block barriers, the stores). Wider tiles read less of the
+//   mask (N^2 / T bytes a scan) but leave SMs idle on one scan.
 //
 // K2 apc_segmented_sums: out[:, s] = sum of values[:, j] over run s, runs
 //   delimited by run_start (element 0's flag ignored: it always opens run
 //   0); the kernel writes zeros into the columns past the last run, so the
-//   caller allocates `out` uninitialised. One launch on a (tiles, batch)
-//   grid of 1024-thread CTAs, 2048 columns a tile, and no scratch: each CTA
-//   counts the run-start flags of its row before and after its own tile
-//   itself (16-byte loads, at most n bytes from L2 per CTA; no inter-CTA
-//   protocol and no memset), ranks its tile's flags with a block scan in
-//   shared memory, and then the thread that owns a run start sums that run
-//   in column order, past the tile's end where the run crosses it, into
-//   column `rank`. No atomics: results are deterministic and equal, bit for
-//   bit, to an in-order sum. Bound on the H100: one launch's latency at the
-//   main path's 6 x 65536 (1.6 MB), and the longest run, which one thread
-//   walks serially. The voxel stage keeps runs short by making each dead
-//   column a run of its own, so at the main path the longest run is one
-//   voxel's points. Splitting long runs across a warp would change the
-//   order of addition, so it is not done.
+//   caller allocates `out` uninitialised. 2048 columns a tile: each CTA
+//   counts the run-start flags of its row before and after its own tile,
+//   ranks its tile's flags with a block scan in shared memory, and then
+//   the thread that owns a run start sums that run in column order, past
+//   the tile's end where the run crosses it, into column `rank`. No
+//   atomics: results are deterministic and equal, bit for bit, to an
+//   in-order sum. Bound on the H100: one launch's latency at the main
+//   path's 6 x 65536 (1.6 MB), and the longest run, which one thread walks
+//   serially. The voxel stage keeps runs short by making each dead column
+//   a run of its own, so at the main path the longest run is one voxel's
+//   points. Splitting long runs across a warp would change the order of
+//   addition, so it is not done.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
 
-#include "scan.cuh"
+#include "flags.cuh"
+
+#ifndef APC_K1_TILE
+#define APC_K1_TILE 2048
+#endif
+#define APC_STR_(x) #x
+#define APC_STR(x) APC_STR_(x)
 
 namespace apc {
 namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+constexpr int kMaxRows = 16;  // rows of one K1 launch
+constexpr int kK1Threads = 1024;
+constexpr int kK1Warps = kK1Threads / 32;
+constexpr int kK1Tile = APC_K1_TILE;  // columns per CTA
+constexpr int kK1Items = kK1Tile / kK1Threads;  // columns per thread
+// rows whose words a thread holds at once: 32 words (16 at 8 columns a
+// thread), inside the 64 registers a thread of 1024 has
+constexpr int kK1Words = kK1Items <= 4 ? 32 : 16;
+constexpr int kK1Group = kK1Words / kK1Items < kMaxRows ? kK1Words / kK1Items : kMaxRows;
+static_assert(kK1Tile % kK1Threads == 0 && kK1Items >= 1 && kK1Items <= 8,
+              "APC_K1_TILE must be 1024, 2048, 3072, ... or 8192");
+static_assert(kK1Warps == 32, "one warp scans the per-(column group, warp) counts");
+
+// K1's row table: row r of scan b is src[r] + b * src_stride[r] (words),
+// its output dst[r] + b * dst_stride[r].
+struct RowTable {
+  const uint32_t* src[kMaxRows];
+  uint32_t* dst[kMaxRows];
+  long long src_stride[kMaxRows];
+  long long dst_stride[kMaxRows];
+};
 
 constexpr int kMaxChannels = 8;
 constexpr int kSumThreads = 1024;
@@ -51,50 +94,140 @@ constexpr int kSumItems = kSumTile / kSumThreads;
 constexpr int kSumWarps = kSumThreads / 32;
 static_assert(kSumItems == 2, "each thread ranks one 16-bit word of flags");
 
-// grid (tiles, batch); element b = blockIdx.y.
-__global__ void masked_compact_scatter(const uint32_t* __restrict__ values,
-                                       const uint8_t* __restrict__ mask,
-                                       const int* __restrict__ offsets,
-                                       uint32_t* __restrict__ out, int c, int n,
-                                       int capacity) {
-  const size_t b = blockIdx.y;
-  values += b * c * n;
-  mask += b * n;
-  offsets += b * (gridDim.x + 1);
-  out += b * c * capacity;
-  bool flag[kScanItems];
-  int rank[kScanItems];
-  tile_ranks(mask, n, 0, offsets[blockIdx.x], flag, rank);
-  const int base = blockIdx.x * kScanTile;
+// Words of rows g .. g + kK1Group - 1 (those below `rows`) at this thread's
+// columns of the tile at `base`; 0 past n. `g` is a compile-time constant
+// at every call (the callers' loops unroll), so the table, a
+// __grid_constant__ parameter, is indexed statically and never copied.
+__device__ __forceinline__ void load_rows(const RowTable& table, int g, int rows,
+                                          long long b, int base, int n,
+                                          uint32_t (&v)[kK1Group][kK1Items]) {
 #pragma unroll
-  for (int i = 0; i < kScanItems; ++i) {
-    if (!flag[i] || rank[i] >= capacity) continue;
-    const int col = base + i * kScanThreads + threadIdx.x;
-    for (int ch = 0; ch < c; ++ch) {
-      out[(size_t)ch * capacity + rank[i]] = values[(size_t)ch * n + col];
+  for (int j = 0; j < kK1Group; ++j) {
+    const int r = g + j;
+    if (r >= rows) break;
+    const uint32_t* s = table.src[r] + b * table.src_stride[r];
+#pragma unroll
+    for (int i = 0; i < kK1Items; ++i) {
+      const int col = base + i * kK1Threads + static_cast<int>(threadIdx.x);
+      v[j][i] = col < n ? __ldg(s + col) : 0u;
     }
   }
 }
 
-// This thread's share of the set flags in f[lo, hi) (bool bytes, 0 or 1):
-// 16-byte loads between the unaligned head and tail bytes.
-__device__ __forceinline__ int flag_count_share(const uint8_t* __restrict__ f,
-                                                int lo, int hi) {
-  if (lo >= hi) return 0;
-  const int misalign = static_cast<int>(reinterpret_cast<uintptr_t>(f + lo) & 15);
-  const int head = min((16 - misalign) & 15, hi - lo);
-  const int words = (hi - lo - head) >> 4;
-  const int tail = lo + head + (words << 4);
-  const uint4* w = reinterpret_cast<const uint4*>(f + lo + head);
-  int c = 0;
-  for (int j = threadIdx.x; j < head; j += blockDim.x) c += f[lo + j];
-#pragma unroll 4
-  for (int j = threadIdx.x; j < words; j += blockDim.x) {
-    const uint4 v = __ldg(w + j);
-    c += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+// K1, grid (tiles of kK1Tile columns, batch), kK1Threads threads; scan
+// b = blockIdx.y. mask [batch, n] bool bytes; mask_out [batch, capacity]
+// or null.
+__global__ void __launch_bounds__(kK1Threads)
+masked_compact_kernel(const __grid_constant__ RowTable table, int rows,
+                      const uint8_t* __restrict__ mask, uint8_t* __restrict__ mask_out,
+                      int n, int capacity) {
+  __shared__ int part[kK1Items * kK1Warps];  // live count of (i, warp), then its prefix
+  __shared__ int outside[kK1Warps][2];
+  __shared__ int totals[3];  // live before the tile, in it, after it
+  const long long b = blockIdx.y;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int base = blockIdx.x * kK1Tile;
+  mask += b * n;
+
+  // the first rows' words and the ballots of this warp's flags (columns
+  // base + i * kK1Threads + 32 warp + lane), in flight while the CTA counts
+  uint32_t v[kK1Group][kK1Items];
+  load_rows(table, 0, rows, b, base, n, v);
+  unsigned ballot[kK1Items];
+#pragma unroll
+  for (int i = 0; i < kK1Items; ++i) {
+    const int col = base + i * kK1Threads + t;
+    ballot[i] = __ballot_sync(kFull, col < n && mask[col] != 0);
   }
-  for (int j = tail + threadIdx.x; j < hi; j += blockDim.x) c += f[j];
-  return c;
+  int before = flag_count_share(mask, 0, base);
+  int after = flag_count_share(mask, min(base + kK1Tile, n), n);
+
+  // ranks: one warp scans the kK1Items x 32 ballot counts in column order
+  // (i major, warp minor)
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < kK1Items; ++i) part[i * kK1Warps + warp] = __popc(ballot[i]);
+  }
+  before = __reduce_add_sync(kFull, before);
+  after = __reduce_add_sync(kFull, after);
+  if (lane == 0) {
+    outside[warp][0] = before;
+    outside[warp][1] = after;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int c[kK1Items];
+    int own = 0;
+#pragma unroll
+    for (int j = 0; j < kK1Items; ++j) {
+      c[j] = part[lane * kK1Items + j];
+      own += c[j];
+    }
+    int incl = own;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += y;
+    }
+    int running = incl - own;
+#pragma unroll
+    for (int j = 0; j < kK1Items; ++j) {
+      part[lane * kK1Items + j] = running;
+      running += c[j];
+    }
+    const int tb = __reduce_add_sync(kFull, outside[lane][0]);
+    const int ta = __reduce_add_sync(kFull, outside[lane][1]);
+    if (lane == 31) {
+      totals[0] = tb;
+      totals[1] = incl;
+      totals[2] = ta;
+    }
+  }
+  __syncthreads();
+  const int offset = totals[0];
+  const int total = offset + totals[1] + totals[2];
+  const unsigned below = (1u << lane) - 1u;
+  int rank[kK1Items];
+  unsigned keep = 0;
+#pragma unroll
+  for (int i = 0; i < kK1Items; ++i) {
+    rank[i] = offset + part[i * kK1Warps + warp] + __popc(ballot[i] & below);
+    if ((ballot[i] >> lane & 1u) && rank[i] < capacity) keep |= 1u << i;
+  }
+
+  // the tile's live words go to [offset, offset + its count), row by row
+#pragma unroll
+  for (int g = 0; g < kMaxRows; g += kK1Group) {
+    if (g >= rows) break;
+    if (g > 0) load_rows(table, g, rows, b, base, n, v);
+#pragma unroll
+    for (int j = 0; j < kK1Group; ++j) {
+      const int r = g + j;
+      if (r >= rows) break;
+      uint32_t* d = table.dst[r] + b * table.dst_stride[r];
+#pragma unroll
+      for (int i = 0; i < kK1Items; ++i) {
+        if (keep >> i & 1u) d[rank[i]] = v[j][i];
+      }
+    }
+  }
+
+  // this tile's share of the output columns: zeros from the total on, and
+  // the output mask
+  const int out_end = min(base + kK1Tile, capacity);
+  const int zero_lo = max(base, total);
+#pragma unroll
+  for (int r = 0; r < kMaxRows; ++r) {
+    if (r >= rows) break;
+    uint32_t* d = table.dst[r] + b * table.dst_stride[r];
+    for (int j = zero_lo + t; j < out_end; j += kK1Threads) d[j] = 0u;
+  }
+  if (mask_out != nullptr) {
+    uint8_t* m = mask_out + b * capacity;
+    for (int j = base + t; j < out_end; j += kK1Threads) m[j] = j < total ? 1 : 0;
+  }
 }
 
 // K2, grid (tiles of kSumTile columns, batch), kSumThreads threads; element
@@ -211,25 +344,28 @@ segmented_sums_kernel(const float* __restrict__ values,
 }  // namespace
 }  // namespace apc
 
-// values [batch, c, n], mask [batch, n], out [batch, c, capacity];
-// scratch: int32[batch * (2 * tiles + 1)] (tile counts, then tile offsets
-// + total per element).
-extern "C" int apc_masked_compact(const void* values, const void* mask,
-                                  void* out, void* scratch, int batch, int c,
-                                  int n, int capacity, void* stream) {
+// table: `rows` (<= 16) entries of 4 int64s, each (source row, its stride
+// between scans in words, output row, its stride): the host packs them into
+// the kernel's parameter struct, so no pointer table is copied to the
+// device. mask [batch, n] bool bytes; mask_out [batch, capacity] bool or
+// null; outputs need not be initialised. One launch.
+extern "C" int apc_masked_compact(const long long* table, int rows, const void* mask,
+                                  void* mask_out, int batch, int n, int capacity,
+                                  void* stream) {
   using namespace apc;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = scan_tiles(n);
-  if (batch > 0 && tiles > 0 && capacity > 0) {
-    int* counts = static_cast<int*>(scratch);
-    int* offsets = counts + (size_t)batch * tiles;
-    const uint8_t* m = static_cast<const uint8_t*>(mask);
-    const dim3 grid(tiles, batch);
-    tile_count_kernel<<<grid, kScanThreads, 0, s>>>(m, n, 0, counts);
-    tile_scan_kernel<<<batch, kScanBlock, 0, s>>>(counts, tiles, offsets);
-    masked_compact_scatter<<<grid, kScanThreads, 0, s>>>(
-        static_cast<const uint32_t*>(values), m, offsets,
-        static_cast<uint32_t*>(out), c, n, capacity);
+  if (rows < 1 || rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  RowTable rt = {};
+  for (int r = 0; r < rows; ++r) {
+    rt.src[r] = reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(table[4 * r]));
+    rt.src_stride[r] = table[4 * r + 1];
+    rt.dst[r] = reinterpret_cast<uint32_t*>(static_cast<uintptr_t>(table[4 * r + 2]));
+    rt.dst_stride[r] = table[4 * r + 3];
+  }
+  if (batch > 0 && n > 0 && capacity > 0) {
+    const dim3 grid((n + kK1Tile - 1) / kK1Tile, batch);
+    masked_compact_kernel<<<grid, kK1Threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        rt, rows, static_cast<const uint8_t*>(mask), static_cast<uint8_t*>(mask_out), n,
+        capacity);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -251,9 +387,8 @@ extern "C" int apc_segmented_sums(const void* values, const void* run_start,
 }
 
 // Registers, resident CTAs an SM and local memory (spills) a thread of
-// this file's kernel instantiation `index` (0: K1's tile counts, 1: K1's
-// offset scan, 2: K1's scatter, 3: K2), at the block size each is launched
-// with. Returns 0, -1 past the last one, or a CUDA error code.
+// this file's kernel instantiation `index` (0: K1, 1: K2), at the block
+// size each is launched with. Returns 0, -1 past the last one, or a CUDA error code.
 extern "C" int apc_segmean_info(int index, char* name, int name_len, int* regs,
                                 int* blocks_per_sm, int* local_bytes) {
   using namespace apc;
@@ -263,9 +398,8 @@ extern "C" int apc_segmean_info(int index, char* name, int name_len, int* regs,
     int threads;
   };
   const Entry table[] = {
-      {"K1 tile_count_kernel", reinterpret_cast<const void*>(&tile_count_kernel), kScanThreads},
-      {"K1 tile_scan_kernel", reinterpret_cast<const void*>(&tile_scan_kernel), kScanBlock},
-      {"K1 masked_compact_scatter", reinterpret_cast<const void*>(&masked_compact_scatter), kScanThreads},
+      {"K1 masked_compact_kernel T=" APC_STR(APC_K1_TILE),
+       reinterpret_cast<const void*>(&masked_compact_kernel), kK1Threads},
       {"K2 segmented_sums_kernel", reinterpret_cast<const void*>(&segmented_sums_kernel), kSumThreads},
   };
   if (index < 0 || index >= static_cast<int>(sizeof(table) / sizeof(table[0]))) return -1;

@@ -22,7 +22,7 @@ from .linalg import smallest_eigenvector_sym3x3, smallest_eigvec_entries
 from .normals import estimate_normals
 from .outliers import remove_statistical_outliers
 from .radius_outliers import remove_radius_outliers
-from .segmean import masked_compact, segmented_sums
+from .segmean import compact_rows, masked_compact, segmented_sums
 from .transform import rotate_rows, se3_transform, transform_points
 from .voxel import voxel_downsample
 from .window import (

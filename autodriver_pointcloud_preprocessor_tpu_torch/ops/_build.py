@@ -55,8 +55,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C entry points: name -> argtypes (every one returns cudaError_t as int)
 _SIGNATURES = {
-    # values, mask, out, scratch, batch, c, n, capacity, stream
-    "apc_masked_compact": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # row table (4 int64s a row, packed bytes), rows, mask, mask_out, batch,
+    # n, capacity, stream
+    "apc_masked_compact": (ctypes.c_char_p, _I, _P, _P, _I, _I, _I, _P),
     # values, run_start, out, batch, c, n, stream
     "apc_segmented_sums": (_P, _P, _P, _I, _I, _I, _P),
     # x, y, z, valid, rad, rad_stride, rad2, rad2_stride, mean, cnt, mom,

@@ -11,15 +11,12 @@ from __future__ import annotations
 import torch
 
 from ..core.scan import ScanBuffer
-from .segmean import masked_compact
+from .segmean import compact_rows
 
 __all__ = [
     "compact_to", "compaction_order", "gather_columns", "shrink_front", "stream_compact_to",
     "subsample_to",
 ]
-
-_MAX_ROWS = 8  # rows per K1 launch
-
 
 def compaction_order(mask: torch.Tensor) -> torch.Tensor:
     """Stable permutation (along the last axis) putting True rows first."""
@@ -95,39 +92,19 @@ def stream_compact_to(buf: ScanBuffer, capacity: int) -> ScanBuffer:
     """Compact live points to the front of a smaller buffer with K1.
 
     Every row (positions and each attribute row, float32 or int32) rides
-    the kernel as 32-bit words, at most 8 rows per launch (a batch shares
-    its launches), so values come through bit for bit. Live points with
-    rank >= ``capacity`` are dropped (capped-output semantics); dead output
-    slots hold zeros.
+    one K1 launch as 32-bit words, read from the buffer's own tensors and
+    written into the new ones (a batch shares the launch), so values come
+    through bit for bit; the same launch writes the new mask. Live points
+    with rank >= ``capacity`` are dropped (capped-output semantics); dead
+    output slots hold zeros. Other dtypes raise; on a card every tensor
+    must be contiguous.
     """
     if capacity > buf.capacity:
         raise ValueError(
             f"stream_compact_to grows capacity {buf.capacity} -> {capacity}"
         )
-    n = buf.capacity
-    lead = buf.batch_shape
-    rows = [buf.positions.view(torch.int32)]
-    specs = []  # (name, shape, dtype, first row, row count)
-    start = 3
-    for name, v in sorted(buf.attributes.items()):
-        if v.dtype not in (torch.float32, torch.int32):
-            raise ValueError(f"stream_compact_to: attribute {name} has dtype {v.dtype}")
-        r2 = v.reshape(lead + (-1, n)).view(torch.int32)
-        specs.append((name, v.shape, v.dtype, start, r2.shape[-2]))
-        rows.append(r2)
-        start += r2.shape[-2]
-    allrows = torch.cat(rows, dim=-2)
-    out = torch.cat([
-        masked_compact(allrows[..., s : s + _MAX_ROWS, :].contiguous(), buf.mask, capacity)
-        for s in range(0, allrows.shape[-2], _MAX_ROWS)
-    ], dim=-2)
-    attrs = {
-        name: out[..., s : s + r, :].view(dtype).reshape(shape[:-1] + (capacity,))
-        for name, shape, dtype, s, r in specs
-    }
-    count = buf.mask.sum(-1, keepdim=True)
-    return ScanBuffer(
-        positions=out[..., :3, :].view(torch.float32),
-        mask=torch.arange(capacity, device=buf.device) < count,
-        attributes=attrs,
+    names = sorted(buf.attributes)
+    outs, mask = compact_rows(
+        [buf.positions, *(buf.attributes[name] for name in names)], buf.mask, capacity
     )
+    return ScanBuffer(positions=outs[0], mask=mask, attributes=dict(zip(names, outs[1:])))

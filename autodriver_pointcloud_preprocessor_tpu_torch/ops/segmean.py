@@ -6,23 +6,28 @@ in two modes). The CUDA kernels are in ``csrc/segmean.cu``; each function
 here launches its kernel for CUDA tensors and runs its plain PyTorch
 version for CPU tensors. There is no other path: a tensor on another
 device raises. Both take an optional leading batch axis (the reference's
-``custom_vmap`` rule), launched as one kernel for the batch.
+``custom_vmap`` rule), launched as one kernel for the batch. K1 takes a
+table of row pointers, so ``compact_rows`` compacts the rows of several
+tensors (a scan buffer's positions and attributes) in one launch, and
+writes the output mask in the same launch.
 """
 from __future__ import annotations
 
-from typing import Optional
+import struct
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from . import _build
 
 __all__ = [
-    "masked_compact", "masked_compact_plain",
+    "compact_rows", "compact_rows_plain", "masked_compact", "masked_compact_plain",
     "run_ids", "segmented_sums", "segmented_sums_plain",
 ]
 
 _MAX_CHANNELS = 8
-_TILE = 1024  # columns per scan tile (csrc/scan.cuh kScanTile)
+_MAX_ROWS = 16  # rows of one K1 launch (csrc/segmean.cu kMaxRows)
+_K1_DTYPES = (torch.float32, torch.int32)
 
 
 def _check_rows(name: str, values: torch.Tensor, flags: torch.Tensor, dtypes):
@@ -44,18 +49,116 @@ def _check_rows(name: str, values: torch.Tensor, flags: torch.Tensor, dtypes):
     return (vshape[0] if len(vshape) == 3 else 1), vshape[-2], vshape[-1]
 
 
+def compact_rows_plain(
+    sources: Sequence[torch.Tensor], mask: torch.Tensor, capacity: int
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Plain version of K1's row-table entry (same contract as
+    ``compact_rows``)."""
+    n = mask.shape[-1]
+    live = mask.reshape(-1, n)
+    rank = torch.cumsum(live, -1) - 1
+    b, col = torch.nonzero(live & (rank < capacity), as_tuple=True)
+    dst = rank[b, col]
+    outs = []
+    for src in sources:
+        vals = src.reshape(live.shape[0], -1, n)
+        out = torch.zeros(vals.shape[:-1] + (capacity,), dtype=src.dtype, device=src.device)
+        out[b, :, dst] = vals[b, :, col]
+        outs.append(out.reshape(src.shape[:-1] + (capacity,)))
+    count = live.sum(-1, keepdim=True)
+    mask_out = torch.arange(capacity, device=mask.device) < count
+    return outs, mask_out.reshape(mask.shape[:-1] + (capacity,))
+
+
 def masked_compact_plain(
     values: torch.Tensor, mask: torch.Tensor, capacity: int
 ) -> torch.Tensor:
     """Plain version of K1 (same contract as ``masked_compact``)."""
-    c, n = values.shape[-2:]
-    vals = values.reshape(-1, c, n)
-    live = mask.reshape(-1, n)
-    rank = torch.cumsum(live, -1) - 1
-    b, col = torch.nonzero(live & (rank < capacity), as_tuple=True)
-    out = torch.zeros((vals.shape[0], c, capacity), dtype=values.dtype, device=values.device)
-    out[b, :, rank[b, col]] = vals[b, :, col]
-    return out.reshape(values.shape[:-1] + (capacity,))
+    return compact_rows_plain([values], mask, capacity)[0][0]
+
+
+def _launch_k1(entries: List[int], mask: torch.Tensor, mask_out: Optional[torch.Tensor],
+               batch: int, n: int, capacity: int) -> None:
+    """Launch K1 over the row table ``entries`` (4 ints a row: source row
+    pointer, its stride between scans in words, output row pointer, its
+    stride), 16 rows a launch; the first launch writes ``mask_out``."""
+    lib = _build.load_library()
+    stream = _build.stream_handle(mask.device)
+    out_ptr = 0 if mask_out is None else mask_out.data_ptr()
+    for start in range(0, len(entries), 4 * _MAX_ROWS):
+        chunk = entries[start : start + 4 * _MAX_ROWS]
+        rows = len(chunk) // 4
+        err = lib.apc_masked_compact(
+            struct.pack(f"{4 * rows}q", *chunk), rows, mask.data_ptr(),
+            out_ptr if start == 0 else 0, batch, n, capacity, stream,
+        )
+        _build.check(err, "masked_compact")
+        _build.LAUNCHES["masked_compact"] += 1
+
+
+def _table_entries(src: torch.Tensor, out: torch.Tensor, batch: int, n: int,
+                   capacity: int) -> List[int]:
+    """Row-table entries of the contiguous rows of ``src`` [..., N] and of
+    ``out`` [..., capacity] (4-byte words)."""
+    rows = src.numel() // (batch * n)
+    sp, dp = src.data_ptr(), out.data_ptr()
+    src_stride, dst_stride = rows * n, rows * capacity
+    entries = []
+    for r in range(rows):
+        entries += (sp + 4 * n * r, src_stride, dp + 4 * capacity * r, dst_stride)
+    return entries
+
+
+def compact_rows(
+    sources: Sequence[torch.Tensor], mask: torch.Tensor, capacity: int
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Stable stream compaction of several tensors' rows by one live mask.
+
+    Every row of every source rides one K1 launch (up to 16 rows a launch)
+    as 32-bit words, straight from the source tensors into the outputs: no
+    stacked copy. Row ``r`` of an output holds the r-th live column of its
+    source row for r < min(live count, capacity), zeros after. With a batch
+    axis every scan compacts on its own.
+
+    Args:
+        sources: float32 or int32 tensors ``lead + rows + (N,)``, ``lead``
+            the mask's leading shape (``()`` or ``(B,)``) and ``rows`` any
+            shape; contiguous on a CUDA device (a non-contiguous source
+            raises).
+        mask: bool ``lead + (N,)`` live flags.
+        capacity: output columns, in (0, N].
+    Returns:
+        (outputs ``lead + rows + (capacity,)`` of each source's dtype,
+        bool ``lead + (capacity,)`` output mask: r < min(live, capacity)).
+    """
+    lead, n = mask.shape[:-1], mask.shape[-1]
+    if mask.dtype != torch.bool or len(lead) > 1:
+        raise ValueError(f"compact_rows: mask must be bool[N] or [B, N], got {tuple(mask.shape)}")
+    if not sources:
+        raise ValueError("compact_rows: no source tensors")
+    if not 0 < capacity <= n:
+        raise ValueError(f"compact_rows: capacity {capacity} not in (0, {n}]")
+    for src in sources:
+        if src.dtype not in _K1_DTYPES:
+            raise ValueError(f"compact_rows: dtype {src.dtype} not in {_K1_DTYPES}")
+        if src.shape[: len(lead)] != lead or src.shape[-1] != n or src.dim() <= len(lead):
+            raise ValueError(
+                f"compact_rows: source {tuple(src.shape)} does not match the mask {tuple(mask.shape)}"
+            )
+    if mask.device.type == "cpu":
+        if any(src.device != mask.device for src in sources):
+            raise ValueError("compact_rows: sources and mask on different devices")
+        return compact_rows_plain(sources, mask, capacity)
+    _build.require_cuda("compact_rows", mask, *sources)
+    batch = mask.numel() // n
+    outs, entries = [], []
+    for src in sources:
+        out = torch.empty(src.shape[:-1] + (capacity,), dtype=src.dtype, device=src.device)
+        entries += _table_entries(src, out, batch, n, capacity)
+        outs.append(out)
+    mask_out = torch.empty(lead + (capacity,), dtype=torch.bool, device=mask.device)
+    _launch_k1(entries, mask, mask_out, batch, n, capacity)
+    return outs, mask_out
 
 
 def masked_compact(
@@ -76,24 +179,15 @@ def masked_compact(
     Returns:
         [..., C, capacity] of ``values``' dtype.
     """
-    batch, c, n = _check_rows("masked_compact", values, mask, (torch.float32, torch.int32))
+    batch, c, n = _check_rows("masked_compact", values, mask, _K1_DTYPES)
     capacity = n if capacity is None else int(capacity)
     if not 0 < capacity <= n:
         raise ValueError(f"masked_compact: capacity {capacity} not in (0, {n}]")
     if values.device.type == "cpu":
         return masked_compact_plain(values, mask, capacity)
     _build.require_cuda("masked_compact", values, mask)
-    lib = _build.load_library()
-    dev = values.device
-    out = torch.zeros(values.shape[:-1] + (capacity,), dtype=values.dtype, device=dev)
-    tiles = -(-n // _TILE)
-    scratch = torch.empty(batch * (2 * tiles + 1), dtype=torch.int32, device=dev)
-    err = lib.apc_masked_compact(
-        values.data_ptr(), mask.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        batch, c, n, capacity, _build.stream_handle(dev),
-    )
-    _build.check(err, "masked_compact")
-    _build.LAUNCHES["masked_compact"] += 1
+    out = torch.empty(values.shape[:-1] + (capacity,), dtype=values.dtype, device=values.device)
+    _launch_k1(_table_entries(values, out, batch, n, capacity), mask, None, batch, n, capacity)
     return out
 
 

@@ -6,7 +6,10 @@
    and prints each kernel's registers and resident CTAs an SM.
 2. Holds each kernel against its plain PyTorch version, run on a CPU copy
    of the same inputs, at the shapes the production pipeline gives it (K1
-   and K2 bit for bit).
+   and K2 bit for bit; K1 both as ``masked_compact`` on 8 stacked rows and
+   as the ``pre_compact`` stage, every row of the buffer and its new mask
+   in one launch), and checks with torch.profiler that one ``pre_compact``
+   stage call runs exactly one device operation, K1's kernel.
 3. Batch axis, at B=8 with the main path's shapes from 8 bench scenes
    (seeds 0-7): each batched kernel equals its unbatched launch on every
    element bit for bit, and its plain version on a CPU copy under the
@@ -591,7 +594,9 @@ def outlier_slice(dev, quality_cfg):
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
-    from autodriver_pointcloud_preprocessor_tpu_torch.core import from_soa, stack_buffers, to_soa
+    from autodriver_pointcloud_preprocessor_tpu_torch.core import (
+        from_soa, stack_buffers, to_soa, unstack_buffer,
+    )
     from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import (
         STAGE_TIMING_KEYS, build_pipeline, params_from_config, settings_from_config,
         stage_functions,
@@ -653,11 +658,13 @@ def main() -> None:
 
     def kernel_inputs(buf, u):
         """Each kernel's main-path inputs, from a (batched) buffer: K1 rows
-        (8 rows, NaN on every dead row) and mask; K2 channels and run
-        starts; K3 rows of pass 0 and pass 1; the live voxel counts."""
+        (8 rows, NaN on every dead row) and mask, and the buffer the
+        ``pre_compact`` stage gets; K2 channels and run starts; K3 rows of
+        pass 0 and pass 1; the live voxel counts."""
         b = buf
         for name in ("non_finite", "crop", "ground"):
             b, _ = stages[name](b, params, None, u)
+        pre = b
         k1_mask = b.mask
         k1_rows = torch.cat([b.positions, b.attributes["intensity"].unsqueeze(-2),
                              b.attributes["ring"].unsqueeze(-2).float(), b.positions * 2], dim=-2)
@@ -672,11 +679,26 @@ def main() -> None:
         p0 = [b.positions[..., c, :cap].contiguous() for c in range(3)]
         p0.append(b.mask[..., :cap].contiguous())
         p1 = list(_sorted_rows(torch.stack(p0[:3], dim=-2), p0[3], 1))
-        return k1_rows, k1_mask, k2_vals, k2_flags, {"pass0": p0, "pass1": p1}, live
+        return k1_rows, k1_mask, pre, k2_vals, k2_flags, {"pass0": p0, "pass1": p1}, live
+
+    def pre_compact(b):
+        return stages["pre_compact"](b, params, None, None)[0]
+
+    def check_stage(tag, pre):
+        """The ``pre_compact`` stage on the card against the same stage on a
+        CPU copy, bit for bit (values, zeros and the new mask)."""
+        got = pre_compact(pre)
+        cpu = type(pre)(pre.positions.cpu(), pre.mask.cpu(), {k: v.cpu() for k, v in pre.attributes.items()})
+        want = pre_compact(cpu)
+        check(torch.equal(got.mask.cpu(), want.mask), f"K1 {tag}: pre_compact mask differs")
+        check(torch.equal(bits(got.positions), bits(want.positions)) and all(
+            torch.equal(bits(got.attributes[k]), bits(v)) for k, v in want.attributes.items()),
+            f"K1 {tag}: pre_compact rows differ from the stage on the CPU")
+        return got
 
     # ---- main-path inputs of each kernel, from the bench scene ----------
     buf, _ = from_soa(bench_soa(), capacity=CAPACITY, device=dev)
-    k1_rows, k1_mask, k2_vals, k2_flags, k3_rows, live = kernel_inputs(
+    k1_rows, k1_mask, k1_pre, k2_vals, k2_flags, k3_rows, live = kernel_inputs(
         buf, torch.from_numpy(draws).to(dev)
     )
     print(f"[chip_smoke] shapes: K1 {tuple(k1_rows.shape)} live {int(k1_mask.sum())} "
@@ -688,7 +710,19 @@ def main() -> None:
     out = masked_compact(k1_rows, k1_mask, comp_cap)
     check(torch.equal(bits(out), bits(masked_compact_plain(k1_rows.cpu(), k1_mask.cpu(), comp_cap))),
           "K1 masked_compact is not bit-exact against its plain version")
+    check_stage("single scan", k1_pre)
     max_err["masked_compact"] = 0.0
+    # one pre_compact stage call is one device operation: K1's kernel
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(2):  # the first trace warms the tracer up
+        with torch.profiler.profile(activities=acts) as prof:
+            pre_compact(k1_pre)
+            torch.cuda.synchronize()
+    device_ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(len(device_ops) == 1 and "masked_compact_kernel" in device_ops[0],
+          f"pre_compact ran {len(device_ops)} device operations, not K1 alone: {device_ops}")
+    print(f"[chip_smoke] pre_compact stage: one device operation ({device_ops[0]}) a call "
+          f"(torch.profiler)")
     out = segmented_sums(k2_vals, k2_flags).cpu()
     ref = segmented_sums_plain(k2_vals.cpu(), k2_flags.cpu())
     check(torch.equal(bits(out), bits(ref)), "K2 segmented_sums is not bit-equal to its plain version")
@@ -702,7 +736,7 @@ def main() -> None:
 
     # ---- the batch axis at B=8: batched == unbatched, and == plain -------
     bufs = [from_soa(bench_soa(seed), capacity=CAPACITY, device=dev)[0] for seed in range(BATCH)]
-    b1_rows, b1_mask, b2_vals, b2_flags, b3_rows, blive = kernel_inputs(
+    b1_rows, b1_mask, b1_pre, b2_vals, b2_flags, b3_rows, blive = kernel_inputs(
         stack_buffers(bufs), batch_draws
     )
     print(f"[chip_smoke] batch shapes: K1 {tuple(b1_rows.shape)} live "
@@ -715,6 +749,12 @@ def main() -> None:
               f"batched K1: element {i} differs from its unbatched launch")
     check(torch.equal(bits(out), bits(masked_compact_plain(b1_rows.cpu(), b1_mask.cpu(), comp_cap))),
           "batched K1 is not bit-exact against its batched plain version")
+    got = check_stage(f"B={BATCH}", b1_pre)
+    for i, alone in enumerate(unstack_buffer(b1_pre)):
+        one = pre_compact(alone)
+        check(torch.equal(got.mask[i], one.mask) and torch.equal(bits(got.positions[i]), bits(one.positions))
+              and all(torch.equal(bits(got.attributes[k][i]), bits(v)) for k, v in one.attributes.items()),
+              f"batched pre_compact: scan {i} differs from its unbatched launch")
     batch_err["masked_compact"] = 0.0
     out = segmented_sums(b2_vals, b2_flags)
     for i in range(BATCH):
@@ -855,9 +895,11 @@ def main() -> None:
     check(normals_ok >= 0.98, f"GPU vs CPU: only {normals_ok:.5f} of normals within 2 deg")
 
     # ---- kernel, plain and library times on the card --------------------
-    def kernel_times(rows1, mask1, vals2, flags2, rows3, tag):
+    def kernel_times(rows1, mask1, pre, vals2, flags2, rows3, tag):
         """{kernel: (kernel ms, plain ms, library ms or None, bound ms,
-        bound by)} on these inputs; K3 counts both passes."""
+        bound by)} on these inputs; K3 counts both passes. Also prints the
+        ``pre_compact`` stage's ms (CUDA events, 20 calls) and returns it
+        under "pre_compact"."""
         rows1 = rows1[..., :5, :].contiguous()  # the path's 5 rows
         n1, n2 = rows1.shape[-1], vals2.shape[-1]
         # the library calls: one indexing call gathers every scan's live
@@ -873,6 +915,8 @@ def main() -> None:
                                 lambda: masked_compact_plain(rows1, mask1, comp_cap))
         lib = event_ms(lambda: cols[:, live], 20)
         res["masked_compact"] = (km, pm, lib, *bound(*k1_work(rows1, mask1, comp_cap)))
+        stage_ms = event_ms(lambda: pre_compact(pre), 20)
+        print(f"[chip_smoke] pre_compact stage {tag}: {stage_ms:.4f} ms a call (CUDA events)")
         km, pm = interleaved_ms(lambda: segmented_sums(vals2, flags2),
                                 lambda: segmented_sums_plain(vals2, flags2))
         lib = event_ms(lambda: torch.zeros_like(flat).index_add_(1, ids, flat), 20)
@@ -901,10 +945,11 @@ def main() -> None:
             lib_txt = "none" if lib is None else f"{lib:.4f} ms"
             print(f"[chip_smoke] {k} {tag}: kernel {km:.4f} ms, plain torch {pm:.4f} ms, "
                   f"library {lib_txt}, bound {bms:.4f} ms ({by})")
+        res["pre_compact"] = stage_ms
         return res
 
-    single_t = kernel_times(k1_rows, k1_mask, k2_vals, k2_flags, k3_rows, "single scan")
-    batch_t = kernel_times(b1_rows, b1_mask, b2_vals, b2_flags, b3_rows, f"B={BATCH}")
+    single_t = kernel_times(k1_rows, k1_mask, k1_pre, k2_vals, k2_flags, k3_rows, "single scan")
+    batch_t = kernel_times(b1_rows, b1_mask, b1_pre, b2_vals, b2_flags, b3_rows, f"B={BATCH}")
 
     # ---- ms per scan of the three modes at B=8 ---------------------------
     def serial():
@@ -960,6 +1005,9 @@ def main() -> None:
                             "library_ms": slib},
             "launches_by_path": {name: counts[k] for name, counts in paths.items()},
         }
+        if k == "masked_compact":
+            entry["pre_compact_stage_ms"] = batch_t["pre_compact"]
+            entry["single_scan"]["pre_compact_stage_ms"] = single_t["pre_compact"]
         if k == "window_stats":
             entry["modes_run"] = ["csel", "sweep", "bisect", "moments", "radius2"]
             entry["config2"] = dict(slice3["k3_config2"],

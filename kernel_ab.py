@@ -1,33 +1,44 @@
-"""K2 and K3 of this checkout against the same kernels of other source trees, on one CUDA card.
+"""K1, K2 and K3 of this checkout against the same kernels of other source trees, on one CUDA card.
 
-    python3 kernel_ab.py [--tree NAME=DIR[:FLAG,...]] ... [--profile] [--out DIR]
+    python3 kernel_ab.py [--tree NAME=DIR[:FLAG,...]] ... [--kinds k1,k2,k3] [--profile] [--out DIR]
 
-Records every K2 (``segmented_sums``) and K3 (``window_stats``) call that
-the engine makes on chip_smoke.py's bench scenes, with its inputs: the
-production preset on one scan and on a vmapped batch of 8, bench_suite.py
-config 2 likewise, and the QUALITY preset on one scan (K2 from the
-production runs only). Config 2's K3 calls are also replayed with
-``kmode='bisect'``. Each tree then replays those calls through its own
-wrappers, in a process of its own: this checkout, named ``this``, and each
-``--tree``, the root of another checkout (for example the parent commit,
-``git archive <commit> | tar -x -C build/ab/parent``), built with the nvcc
-flags after the colon, if any (``--tree recompute=.:-DAPC_D2_CACHE_ROWS=0``
-is this checkout with K3's d2 cache off). The trees take turns: in order,
-then in reverse.
+Records every K1 (``stream_compact_to``, the ``pre_compact`` stage), K2
+(``segmented_sums``) and K3 (``window_stats``) call that the engine makes
+on chip_smoke.py's bench scenes, with its inputs: the production preset on
+one scan and on a vmapped batch of 8, bench_suite.py config 2 likewise,
+and the QUALITY preset on one scan (K1 and K2 from the production runs
+only). Config 2's K3 calls are also replayed with ``kmode='bisect'``. Each
+tree then replays those calls through its own wrappers, in a process of
+its own: this checkout, named ``this``, and each ``--tree``, the root of
+another checkout (for example the parent commit, ``git archive <commit> |
+tar -x -C build/ab/parent``), built with the nvcc flags after the colon,
+if any (``--tree recompute=.:-DAPC_D2_CACHE_ROWS=0`` is this checkout with
+K3's d2 cache off, ``--tree t8192=.:-DAPC_K1_TILE=8192`` with K1's 8192-
+column tiles). The trees take turns: in order, then in reverse.
+``--kinds`` replays only the kernels named (default all three).
+
+K1 is replayed at two levels, both with the same signature in every tree
+since the port began: ``stream_compact_to(buffer, capacity)`` (the
+``pre_compact`` stage: every row of the buffer, the new mask included) and
+``masked_compact(rows, mask, capacity)`` on the same buffer's 5 rows
+stacked as int32 (what the stage launched before K1 took a row table).
 
 For every case it prints each tree's ms for the case's calls (CUDA events:
 the mean of 20 calls after one, the median of 3 such rounds, in each turn)
-and whether its outputs on the valid rows equal this checkout's bit for
-bit, or else the largest relative difference of the means. For K2 it also
-prints the device time alone (a CUDA graph of 20 wrapper calls, replayed)
-beside ``index_add_``'s, and for each tree whose library reports them the
-registers, resident CTAs an SM and local bytes of K2 and of K3 at k=20.
-``--profile``: one torch.profiler trace of each K3 case on this checkout;
-it prints each launch's grid, block, registers, shared memory, blocks and
-warps an SM and the tracer's estimate of the achieved occupancy, and keeps
-the traces in ``DIR``. Every record goes to ``DIR/kernel_ab.json``
-(default ``build/kernel_ab``). Needs a CUDA card and nvcc; imports nothing
-of JAX.
+and whether its outputs equal this checkout's bit for bit (K3: on the
+valid rows), or else the largest relative difference of the means. For K1
+and K2 it also prints the device time alone (a CUDA graph of 20 wrapper
+calls, replayed) beside the library call's (K1: ``values[:, mask]``,
+whose device time comes from the tracer's kernel records, since it
+synchronises to size its output and cannot be captured; K2:
+``index_add_``), and for each tree whose library reports them the
+registers, resident CTAs an SM and local bytes of K1, K2 and of K3 at
+k=20. ``--profile``: one torch.profiler trace of each K3 case on this
+checkout; it prints each launch's grid, block, registers, shared memory,
+blocks and warps an SM and the tracer's estimate of the achieved
+occupancy, and keeps the traces in ``DIR``. Every record goes to
+``DIR/kernel_ab.json`` (default ``build/kernel_ab``). Needs a CUDA card and
+nvcc; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -74,18 +85,34 @@ def graph_ms(torch, fn) -> float:
     return start.elapsed_time(end) / REPS
 
 
+def tracer_ms(torch, fn) -> float:
+    """Device ms per call of ``fn``: the tracer's device records of REPS
+    calls after one (for a call that cannot be captured in a graph)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / REPS
+
+
 def record_calls(torch, dev) -> dict:
-    """{"k2" | "k3": {case: [{"args": [...], "kw": {...}}]}}: the kernel
-    calls of the engine's runs on the bench scenes (see the docstring)."""
+    """{"k1": {case: [{"positions", "mask", "attributes", "capacity"}]},
+    "k2" | "k3": {case: [{"args": [...], "kw": {...}}]}}: the kernel calls
+    of the engine's runs on the bench scenes (see the docstring)."""
     import chip_smoke as smoke
     from autodriver_pointcloud_preprocessor_tpu_torch.core import from_soa
     from autodriver_pointcloud_preprocessor_tpu_torch.models.preprocessor import Preprocessor
     from autodriver_pointcloud_preprocessor_tpu_torch.models.presets import (
         PRODUCTION_128K_CONFIG, PRODUCTION_128K_QUALITY_CONFIG,
     )
+    from autodriver_pointcloud_preprocessor_tpu_torch import ops
     from autodriver_pointcloud_preprocessor_tpu_torch.ops import voxel, window
 
-    calls = {"k2": {}, "k3": {}}
+    calls = {"k1": {}, "k2": {}, "k3": {}}
     keep = lambda v: v.clone() if torch.is_tensor(v) else v  # noqa: E731
 
     def recorder(store, real):
@@ -94,16 +121,26 @@ def record_calls(torch, dev) -> dict:
             return real(*args, **kw)
         return call
 
+    def k1_recorder(store, real):
+        def call(buf, capacity):
+            store.append({"positions": buf.positions.clone(), "mask": buf.mask.clone(),
+                          "attributes": {k: v.clone() for k, v in buf.attributes.items()},
+                          "capacity": capacity})
+            return real(buf, capacity)
+        return call
+
     def run(case, fn, k2=False):
-        real = (voxel.segmented_sums, window.window_stats)
+        real = (voxel.segmented_sums, window.window_stats, ops.stream_compact_to)
         k2_store = calls["k2"].setdefault(case, []) if k2 else []
+        k1_store = calls["k1"].setdefault(case, []) if k2 else []
         voxel.segmented_sums = recorder(k2_store, real[0])
         window.window_stats = recorder(calls["k3"].setdefault(case, []), real[1])
+        ops.stream_compact_to = k1_recorder(k1_store, real[2])
         try:
             fn()
             torch.cuda.synchronize()
         finally:
-            voxel.segmented_sums, window.window_stats = real
+            voxel.segmented_sums, window.window_stats, ops.stream_compact_to = real
 
     cap, batch = smoke.CAPACITY, smoke.BATCH
     bench = smoke.bench_soa()
@@ -129,6 +166,62 @@ def record_calls(torch, dev) -> dict:
 def on_valid(t, valid):
     """The entries of valid rows (a [..., 10, N] moments tensor: per row)."""
     return t.movedim(-2, 0)[:, valid] if t.dim() > valid.dim() else t[valid]
+
+
+def k1_rows(torch, buf):
+    """The buffer's rows stacked as int32 [..., 5, N] (positions, then each
+    attribute's rows by name)."""
+    lead, n = buf.mask.shape[:-1], buf.mask.shape[-1]
+    rows = [buf.positions.view(torch.int32)]
+    rows += [buf.attributes[k].reshape(lead + (-1, n)).view(torch.int32) for k in sorted(buf.attributes)]
+    return torch.cat(rows, dim=-2).contiguous()
+
+
+def k1_bits(torch, out) -> list:
+    """A K1 output as a list of tensors compared with ``torch.equal``:
+    32-bit words, and the mask of a buffer."""
+    if torch.is_tensor(out):
+        return [out.view(torch.int32)]
+    return [out.positions.view(torch.int32), out.mask,
+            *(out.attributes[k].view(torch.int32) for k in sorted(out.attributes))]
+
+
+def replay_k1(torch, name, k1_calls, ref, outputs) -> dict:
+    """{level, case: record} of the recorded K1 calls through this
+    process's tree (see the docstring)."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.core.scan import ScanBuffer
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops.compact import stream_compact_to
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops.segmean import masked_compact
+
+    records = {}
+    for case, cs in k1_calls.items():
+        c = cs[0]
+        buf = ScanBuffer(c["positions"], c["mask"], c["attributes"])
+        cap, rows = c["capacity"], k1_rows(torch, buf)
+        levels = {"stream_compact_to": lambda: stream_compact_to(buf, cap),
+                  "masked_compact": lambda: masked_compact(rows, buf.mask, cap)}
+        for level, fn in levels.items():
+            key = f"{level}, {case}"
+            rounds = [event_ms(torch, fn) for _ in range(ROUNDS)]
+            entry = {"calls": len(cs), "ms": statistics.median(rounds), "rounds": rounds}
+            try:
+                entry["device_ms"] = graph_ms(torch, fn)
+            except RuntimeError as err:  # a wrapper that cannot be captured
+                entry["device_ms"], entry["graph_error"] = None, str(err)[:200]
+            bits = k1_bits(torch, fn())
+            outputs["k1 " + key] = bits
+            if ref is not None:
+                want = ref["k1 " + key]
+                entry["bit_equal"] = len(bits) == len(want) and all(
+                    torch.equal(g, w) for g, w in zip(bits, want))
+            if name == "this" and level == "masked_compact":
+                # one indexing call gathers every scan's live columns in order
+                cols = rows.transpose(0, 1) if rows.dim() == 3 else rows
+                library = lambda: cols[:, buf.mask]  # noqa: E731
+                entry["library_ms"] = statistics.median(event_ms(torch, library) for _ in range(ROUNDS))
+                entry["library_device_ms"] = tracer_ms(torch, library)
+            records[key] = entry
+    return records
 
 
 def compare_k3(torch, got, want, valid) -> dict:
@@ -169,9 +262,10 @@ def worker(argv) -> None:
     calls = torch.load(calls_path, map_location=dev)
     first = name == "this" and not ref_path.exists()
     ref = None if first else torch.load(ref_path, map_location=dev)
-    rec = {"tree": name, "k3": {}, "k2": {}, "info": {}, "profile": {}}
+    rec = {"tree": name, "k1": {}, "k3": {}, "k2": {}, "info": {}, "profile": {}}
 
     outputs = {}
+    rec["k1"] = replay_k1(torch, name, calls["k1"], ref, outputs)
     for case, cs in calls["k3"].items():
         fns = [lambda c=c: window_stats(*c["args"], **c["kw"]) for c in cs]
         rounds = [sum(event_ms(torch, f) for f in fns) for _ in range(ROUNDS)]
@@ -257,7 +351,7 @@ def summary(name, turns, kind, case) -> str:
     entries = [t[kind][case] for t in turns]
     ms = [e["ms"] for e in entries]
     text = f"{name} {sum(ms) / len(ms):.4f} ms (turns {', '.join(f'{m:.4f}' for m in ms)})"
-    if kind == "k2" and entries[0].get("device_ms") is not None:
+    if kind in ("k1", "k2") and entries[0].get("device_ms") is not None:
         text += f", device {min(e['device_ms'] for e in entries):.4f}"
     if "bit_equal" in entries[-1]:
         if all(e["bit_equal"] for e in entries if "bit_equal" in e):
@@ -300,7 +394,9 @@ def main() -> None:
             sys.exit(f"kernel_ab: tree {name} failed to build")
     calls_path, ref_path = work_dir / "calls.pt", work_dir / "this_outputs.pt"
     ref_path.unlink(missing_ok=True)
-    torch.save(record_calls(torch, torch.device("cuda:0")), calls_path)
+    kinds = argv[argv.index("--kinds") + 1].split(",") if "--kinds" in argv else ["k1", "k2", "k3"]
+    calls = record_calls(torch, torch.device("cuda:0"))
+    torch.save({kind: (cases if kind in kinds else {}) for kind, cases in calls.items()}, calls_path)
 
     turns = {name: [] for name, _, _ in trees}
     for turn, (name, path, flags) in enumerate(trees + trees[::-1]):
@@ -311,17 +407,21 @@ def main() -> None:
         turns[name].append(json.loads(rec_path.read_text()))
 
     this = turns["this"][0]
-    for kind in ("k3", "k2"):
+    for kind in ("k1", "k3", "k2"):
         for case in this[kind]:
             print(f"[kernel_ab] {kind.upper()} {case}: "
                   + "; ".join(summary(name, turns[name], kind, case) for name, _, _ in trees), flush=True)
+    for case, e in this["k1"].items():
+        if "library_ms" in e:
+            print(f"[kernel_ab] K1 {case}: values[:, mask] {e['library_ms']:.4f} ms, device "
+                  f"(tracer) {e['library_device_ms']:.4f}")
     for case, e in this["k2"].items():
         print(f"[kernel_ab] K2 {case}: index_add_ {e['library_ms']:.4f} ms, device "
               f"{e['library_device_ms']:.4f}")
     for name, _, _ in trees:
         info = turns[name][0]["info"]
         for wb, kernels in info.items():
-            picked = {k: v for k, v in kernels.items() if k.startswith("K2") or "MAXK=32" in k}
+            picked = {k: v for k, v in kernels.items() if k.startswith(("K1", "K2")) or "MAXK=32" in k}
             print(f"[kernel_ab] {name} kernel info ({wb}): {json.dumps(picked)}")
     for case, launches in this["profile"].items():
         print(f"[kernel_ab] profile {case}: {json.dumps(launches)}")

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from autodriver_pointcloud_preprocessor_tpu_torch.core import from_soa, to_soa
+from autodriver_pointcloud_preprocessor_tpu_torch.core import ScanBuffer, from_soa, to_soa
 from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import (
     build_pipeline,
     params_from_config,
@@ -20,7 +20,10 @@ from autodriver_pointcloud_preprocessor_tpu_torch.models.presets import (
     PRODUCTION_128K_CONFIG,
 )
 from autodriver_pointcloud_preprocessor_tpu_torch.ops import _build
+from autodriver_pointcloud_preprocessor_tpu_torch.ops.compact import stream_compact_to
 from autodriver_pointcloud_preprocessor_tpu_torch.ops.segmean import (
+    compact_rows,
+    compact_rows_plain,
     masked_compact,
     masked_compact_plain,
     segmented_sums,
@@ -284,6 +287,110 @@ def test_segmented_sums_one_launch_is_bit_equal(cuda, name):
     if vals.ndim == 3:  # each element equals its unbatched launch
         for i in range(vals.shape[0]):
             assert torch.equal(_bits(got[i]), _bits(segmented_sums(vd[i], fd[i])))
+
+
+_K1_DENSITIES = [0.0, 0.01, 0.1, 0.3, 0.5, 0.7, 0.9, 1.0]
+
+
+def _k1_case(name):
+    """(live mask [N] or [B, N], capacity) of a K1 card case: tile edges for
+    every tile width the kernel builds with (2048, 4096, 8192 columns)."""
+    rng = _rng(len(name) + 100)
+    if name == "b8_densities":
+        return rng.uniform(size=(8, 131072)) < np.array(_K1_DENSITIES)[:, None], 65536
+    n, cap = {"all_live": (20000, 20000), "none_live": (20000, 10000), "one_live": (20000, 4096),
+              "runs_across_tiles": (40000, 40000), "ragged": (3 * 8192 + 77, 20000),
+              "below_tile": (1000, 1000), "cap_below_live": (131072, 65536)}[name]
+    mask = {"all_live": np.ones(n, bool), "none_live": np.zeros(n, bool)}.get(name)
+    if name == "one_live":
+        mask = np.zeros(n, bool)
+        mask[8191] = True  # the last column of a tile at every width
+    elif name == "runs_across_tiles":
+        mask = np.zeros(n, bool)
+        for lo, hi in ((2000, 2100), (4000, 12300), (16383, 16385), (24575, 40000)):
+            mask[lo:hi] = True
+    elif mask is None:
+        mask = rng.uniform(size=n) < (0.6 if name == "cap_below_live" else 0.4)
+    return mask, cap
+
+
+def _k1_sources(mask, rng):
+    """f32 [..., 3, N] with NaN on dead columns, int32 [..., N], f32 [..., N]."""
+    lead, n = mask.shape[:-1], mask.shape[-1]
+    pos = rng.normal(0, 10, lead + (3, n)).astype(np.float32)
+    pos[np.broadcast_to(~mask[..., None, :], pos.shape)] = np.nan
+    ints = rng.integers(-(2 ** 31), 2 ** 31 - 1, lead + (n,)).astype(np.int32)
+    return [torch.from_numpy(pos), torch.from_numpy(ints),
+            torch.from_numpy(rng.uniform(0, 255, lead + (n,)).astype(np.float32))]
+
+
+@pytest.mark.parametrize("name", ["all_live", "none_live", "one_live", "runs_across_tiles", "ragged",
+                                  "below_tile", "cap_below_live", "b8_densities"])
+def test_k1_one_launch_is_bit_equal(cuda, name):
+    mask_np, cap = _k1_case(name)
+    sources = _k1_sources(mask_np, _rng(7))
+    mask = torch.from_numpy(mask_np)
+    want, want_mask = compact_rows_plain(sources, mask, cap)
+    # leave NaN in the allocator's cache: the kernel must write every column
+    torch.full((mask.numel() * 8,), float("nan"), device=cuda)
+    src_d, mask_d = [s.to(cuda) for s in sources], mask.to(cuda)
+    before = _build.LAUNCHES["masked_compact"]
+    got, got_mask = compact_rows(src_d, mask_d, cap)
+    assert _build.LAUNCHES["masked_compact"] == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(_bits(g), _bits(w))
+    assert torch.equal(got_mask.cpu(), want_mask)
+    # masked_compact: the same kernel over one tensor's rows
+    stacked = torch.cat([sources[0].view(torch.int32), sources[1].unsqueeze(-2)], dim=-2)
+    one = masked_compact(stacked.to(cuda), mask_d, cap)
+    assert torch.equal(one.cpu(), masked_compact_plain(stacked, mask, cap))
+    if mask.dim() == 2:  # each scan equals its unbatched launch
+        for i in range(mask.shape[0]):
+            alone, alone_mask = compact_rows([s[i] for s in src_d], mask_d[i], cap)
+            assert all(torch.equal(_bits(g[i]), _bits(a)) for g, a in zip(got, alone))
+            assert torch.equal(got_mask[i], alone_mask)
+
+
+def _buffer_11_rows(rng, n):
+    """A scan buffer whose rows are 5 float32 and 6 int32 ones: positions,
+    intensity, ring, normals [3, N] and an int32 label [3, N]."""
+    mask = rng.uniform(size=n) < 0.4
+    pos = rng.normal(0, 20, (3, n)).astype(np.float32)
+    pos[:, ~mask] = np.nan
+    attrs = {
+        "intensity": rng.uniform(0, 255, n).astype(np.float32),
+        "ring": rng.integers(0, 32, n).astype(np.int32),
+        "normals": rng.normal(0, 1, (3, n)).astype(np.float32),
+        "label": rng.integers(-(2 ** 31), 2 ** 31 - 1, (3, n)).astype(np.int32),
+    }
+    return ScanBuffer(torch.from_numpy(pos), torch.from_numpy(mask),
+                      {k: torch.from_numpy(v) for k, v in attrs.items()})
+
+
+def test_stream_compact_to_moves_11_rows_in_one_launch(cuda):
+    n, cap = 131072, 65536
+    buf = _buffer_11_rows(_rng(11), n)
+    want = stream_compact_to(buf, cap)
+    torch.full((n * 12,), float("nan"), device=cuda)
+    dev = ScanBuffer(buf.positions.to(cuda), buf.mask.to(cuda),
+                     {k: v.to(cuda) for k, v in buf.attributes.items()})
+    before = _build.LAUNCHES["masked_compact"]
+    got = stream_compact_to(dev, cap)
+    assert _build.LAUNCHES["masked_compact"] == before + 1
+    assert torch.equal(got.mask.cpu(), want.mask)
+    assert torch.equal(_bits(got.positions), _bits(want.positions))
+    for k, v in want.attributes.items():
+        assert got.attributes[k].dtype == v.dtype and torch.equal(_bits(got.attributes[k]), _bits(v)), k
+
+
+def test_stream_compact_to_rejects_a_non_contiguous_attribute(cuda):
+    n = 4096
+    buf = _buffer_11_rows(_rng(12), n)
+    dev = ScanBuffer(buf.positions.to(cuda), buf.mask.to(cuda),
+                     {"intensity": torch.zeros((n, 2), device=cuda)[:, 0]})
+    assert not dev.attributes["intensity"].is_contiguous()
+    with pytest.raises(ValueError):
+        stream_compact_to(dev, 2048)
 
 
 def _k3_rows(seed, n=8192):
