@@ -6,16 +6,19 @@ The configuration surface is the reference's, unchanged:
 ``settings_from_config`` and the named presets (``models/presets.py``).
 ``PipelineParams`` holds tensors on one device (``cuda:0`` unless given).
 
-The port runs duplicates fused into the voxel sort (or as their own
-stage), non-finite, the SE(3) transforms, crop, RANSAC ground on the raw
-cloud, pre-voxel stream compaction (K1), the voxel stage (K2, curve-ordered
-when the fused neighbourhood consumes it), the post-downsample shrink, the
+The port runs every stage and stage order of the reference: duplicates
+fused into the voxel sort (or as their own stage), non-finite, the SE(3)
+transforms, crop, ground removal (RANSAC or the fixed-plane height cut) on
+the raw cloud, right after the downsampler or last, pre-voxel stream
+compaction (K1), the voxel stage (K2, curve-ordered when the fused
+neighbourhood consumes it, 'box' or 'wide' compact keys) or the random,
+uniform and farthest-point downsamplers, the post-downsample shrink, the
 fused multi-pass Hilbert-window neighbourhood (K3) with the mean+std
 outlier threshold of each scan and the radius-outlier count riding the
 same sweep, and the standalone statistical outlier, radius outlier and
-normal stages (exact kNN or the window). Settings that need a stage the
-port does not have yet raise ``NotImplementedError`` naming its ROADMAP
-item.
+normal stages (exact kNN or the window). ``pallas_ok=False`` (the
+reference's XLA kernel variants) raises ``NotImplementedError`` naming its
+ROADMAP item.
 
 Every stage takes one scan or a batch of scans (a leading axis on every
 tensor of the buffer, ``core.stack_buffers``), so the same runner serves
@@ -323,24 +326,17 @@ STAGE_TIMING_KEYS = {
 
 def _check_supported(settings: "PipelineSettings") -> None:
     """Raise for settings whose stages the port does not have yet."""
-    if settings.voxel_downsample and settings.downsample_method != "voxel":
-        raise _not_ported(f"downsample_method={settings.downsample_method!r}", "item 8")
-    if settings.remove_ground:
-        if settings.ground_method != "ransac":
-            raise _not_ported("height ground removal", "item 3")
-        if not settings.ground_before_voxel:
-            raise _not_ported(
-                "ground removal after the voxel stage or before the neighbourhood", "item 8"
-            )
-        if settings.ground_score_subsample:
-            raise _not_ported("remove_ground.score_subsample", "item 3")
-    if settings.voxel_compact_keys == "wide":
-        raise _not_ported("the 'wide' compact voxel keys", "item 5")
+    if not settings.pallas_ok:
+        # the reference's XLA variants compute another window (wb=0 widens
+        # to a full block per side); the port has one route per kernel
+        raise _not_ported("pallas_ok=False", "item 13")
 
 
 def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
-    """Ordered list of ``(stage_name, fn(buf, params, generator, uniforms)
-    -> (buf, aux))``; ``aux`` is the ground plane (float32[..., 4]) or None.
+    """Ordered list of ``(stage_name, fn(buf, params, generator,
+    ground_uniforms=None, downsample_uniforms=None) -> (buf, aux))``;
+    ``aux`` is the ground plane (float32[..., 4]) or None. The uniforms
+    replace the generator's draws of RANSAC and of the random downsampler.
 
     ``separate_stages=True`` (profile mode) keeps duplicate removal out of
     the voxel sort and the radius outliers out of the fused neighbourhood,
@@ -348,24 +344,24 @@ def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
     """
     _check_supported(settings)
     stages = []
+    method = settings.downsample_method
+    if settings.voxel_downsample and method not in (
+        "voxel", "random", "uniform", "farthest_point"
+    ):
+        raise ValueError(f"unknown downsample_method {method!r}")
+    voxel_grid = settings.voxel_downsample and method == "voxel"
 
     # duplicate removal fuses into the voxel sort when both are enabled
-    fuse_dedup = (
-        not separate_stages and settings.remove_duplicates and settings.voxel_downsample
-    )
+    fuse_dedup = not separate_stages and settings.remove_duplicates and voxel_grid
     if settings.remove_duplicates and not fuse_dedup:
-        stages.append(
-            ("remove_duplicates", lambda b, p, g, u: (ops.remove_duplicates(b), None))
-        )
+        stages.append(("remove_duplicates", lambda b, p, *_: (ops.remove_duplicates(b), None)))
 
     if settings.remove_nans or settings.remove_infs:
         rn, ri = settings.remove_nans, settings.remove_infs
-        stages.append(
-            ("non_finite", lambda b, p, g, u: (ops.mask_non_finite(b, rn, ri), None))
-        )
+        stages.append(("non_finite", lambda b, p, *_: (ops.mask_non_finite(b, rn, ri), None)))
 
     if settings.apply_offset_lidar or settings.apply_tf:
-        def xform(b, p, g, u):
+        def xform(b, p, *_):
             if settings.apply_offset_lidar:
                 b = ops.se3_transform(b, p.offset_matrix)
             if settings.apply_tf:
@@ -379,17 +375,38 @@ def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
     if settings.crop_to_roi:
         stages.append((
             "crop",
-            lambda b, p, g, u: (ops.crop_box(b, p.roi_min, p.roi_max, p.crop_invert), None),
+            lambda b, p, *_: (ops.crop_box(b, p.roi_min, p.roi_max, p.crop_invert), None),
         ))
 
-    if settings.remove_ground:  # on the raw cloud (ground_before_voxel)
-        def ground(b, p, g, u):
+    # ground order: on the raw cloud before the voxel stage (ground_raw),
+    # right after the downsampler (ground_first), or last (the reference)
+    ground_raw = settings.ground_before_voxel and settings.remove_ground
+    ground_first = (
+        not ground_raw and settings.ground_before_neighborhood and settings.remove_ground
+    )
+
+    def make_ground_stage():
+        if settings.ground_method == "height":
+            def ground(b, p, *_):
+                b = ops.remove_ground_by_height(b, p.ground_plane, p.distance_threshold)
+                return b, p.ground_plane.expand(b.batch_shape + (4,))
+
+            return ground
+        # right after the voxel grid the live points fill a prefix, so the
+        # RANSAC draws index slots directly
+        live_prefix = ground_first and voxel_grid
+
+        def ground(b, p, g, u=None, du=None):
             return ops.remove_ground(
-                b, g, p.distance_threshold, settings.ransac_n,
-                settings.num_iterations, uniforms=u,
+                b, g, p.distance_threshold, settings.ransac_n, settings.num_iterations,
+                uniforms=u, live_prefix=live_prefix,
+                score_subsample=settings.ground_score_subsample,
             )
 
-        stages.append(("ground", ground))
+        return ground
+
+    if ground_raw:
+        stages.append(("ground", make_ground_stage()))
 
     # the fused sweep serves statistical outliers with at least one more
     # window consumer: normals or radius outliers (K3 gives the moments and
@@ -401,15 +418,16 @@ def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
         and settings.knn_method != "exact"
     )
     # the curve-ordered voxel output is front-compacted and in pass-0
-    # curve order: the neighbourhood's pass-0 sort and the shrink become a
-    # prefix slice
-    presorted = fuse and settings.voxel_curve_order and settings.voxel_downsample
+    # curve order, and nothing before the neighbourhood reorders it or
+    # punches holes in it (ground_first would): the neighbourhood's pass-0
+    # sort and the shrink become a prefix slice
+    presorted = fuse and settings.voxel_curve_order and voxel_grid and not ground_first
     cap = settings.post_downsample_capacity
 
     if settings.pre_voxel_compact_capacity > 0 and settings.voxel_downsample:
         pcap = settings.pre_voxel_compact_capacity
 
-        def pre_compact(b, p, g, u):
+        def pre_compact(b, p, *_):
             if pcap >= b.capacity:  # nothing to shrink
                 return b, None
             return ops.stream_compact_to(b, pcap), None
@@ -417,20 +435,31 @@ def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
         stages.append(("pre_compact", pre_compact))
 
     if settings.voxel_downsample:
-        stages.append((
-            "voxel",
-            lambda b, p, g, u: (
-                ops.voxel_downsample(
+        # every downsampler runs under the voxel stage's name and timing key
+        if method == "voxel":
+            def downsample(b, p, *_):
+                return ops.voxel_downsample(
                     b, p.voxel_size, dedup_exact=fuse_dedup, curve_order=presorted,
                     compact_keys=settings.voxel_compact_keys if presorted else False,
-                ),
-                None,
-            ),
-        ))
-        if cap > 0 and not presorted:  # presorted: deferred into the prefix slice
-            def shrink(b, p, g, u):
+                ), None
+        elif method == "random":
+            def downsample(b, p, g, u=None, du=None):
+                return ops.random_downsample(b, p.sampling_ratio, g, uniforms=du), None
+        elif method == "uniform":
+            def downsample(b, p, *_):
+                return ops.uniform_downsample(b, p.every_k_points), None
+        else:
+            def downsample(b, p, *_):
+                return ops.farthest_point_downsample(b, settings.fps_num_samples), None
+
+        stages.append(("voxel", downsample))
+        if cap > 0 and not ground_first and not presorted:  # else deferred
+            def shrink(b, p, *_):
                 if cap >= b.capacity:  # nothing to shrink
                     return b, None
+                if not voxel_grid:
+                    # a mask-only downsampler: one unbiased capped compaction
+                    return ops.subsample_to(b, cap), None
                 # the voxel output is front-compacted: a prefix slice keeps
                 # every voxel unless they overflow the bucket, and then the
                 # unbiased hash subsample runs (a prefix in voxel-key order
@@ -444,19 +473,34 @@ def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
 
             stages.append(("shrink", shrink))
 
+    if ground_first:
+        stages.append(("ground", make_ground_stage()))
+
+    # the shrink deferred past the early ground stage (or, presorted, into
+    # the prefix slice): the fused neighbourhood folds it into its first
+    # curve sort or slice; the unfused path runs one subsample_to
+    deferred_cap = cap if (ground_first or presorted) and cap > 0 else 0
+    if deferred_cap and not fuse:
+        stages.append((
+            "shrink",
+            lambda b, p, *_: (
+                ops.subsample_to(b, deferred_cap) if deferred_cap < b.capacity else b, None
+            ),
+        ))
+
     # radius outliers ride the fused sweep (K3's in-radius2 count); profile
     # mode keeps their standalone stage so that its timing key is emitted
     fuse_radius = fuse and settings.remove_radius_outliers and not separate_stages
 
     if fuse:
-        def neighborhood(b, p, g, u):
+        def neighborhood(b, p, *_):
             out = fused_neighborhood_stats_reordered(
                 b.positions, b.mask, dict(b.attributes),
                 k=settings.nb_neighbors, radius=p.search_radius,
                 window_blocks=settings.window_blocks,
                 passes=settings.neighborhood_passes,
                 kmode=settings.knn_kmode,
-                shrink_to=cap if presorted and 0 < cap < b.capacity else 0,
+                shrink_to=deferred_cap if deferred_cap < b.capacity else 0,
                 radius2=p.radius_search_radius if fuse_radius else None,
                 presorted=presorted,
                 entries_merge=settings.normals_merge_passes,
@@ -480,7 +524,7 @@ def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
     if settings.remove_statistical_outliers and not fuse:
         stages.append((
             "outliers",
-            lambda b, p, g, u: (
+            lambda b, p, *_: (
                 ops.remove_statistical_outliers(
                     b, settings.nb_neighbors, p.std_ratio, kmode=settings.knn_kmode,
                     **standalone,
@@ -491,7 +535,7 @@ def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
     if settings.remove_radius_outliers and not fuse_radius:
         stages.append((
             "radius_outliers",
-            lambda b, p, g, u: (
+            lambda b, p, *_: (
                 ops.remove_radius_outliers(
                     b, p.radius_nb_points, p.radius_search_radius, **standalone
                 ),
@@ -501,11 +545,14 @@ def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
     if settings.estimate_normals and not fuse:
         stages.append((
             "normals",
-            lambda b, p, g, u: (
+            lambda b, p, *_: (
                 ops.estimate_normals(b, p.search_radius, settings.max_neighbors, **standalone),
                 None,
             ),
         ))
+
+    if settings.remove_ground and not ground_first and not ground_raw:
+        stages.append(("ground", make_ground_stage()))
     return stages
 
 
@@ -524,23 +571,26 @@ def _select_scans(pick: torch.Tensor, a: ScanBuffer, b: ScanBuffer) -> ScanBuffe
 
 
 def pipeline_runner(settings: PipelineSettings):
-    """The pipeline body: ``fn(buf, params, generator, ground_uniforms=None)
-    -> (buf, plane)``.
+    """The pipeline body: ``fn(buf, params, generator, ground_uniforms=None,
+    downsample_uniforms=None) -> (buf, plane)``.
 
     ``buf`` is one scan or a batch (``core.stack_buffers``); ``plane`` is
     float32[..., 4] of the batch shape, NaN when ground removal is off.
-    ``ground_uniforms`` float32[..., num_iterations, ransac_n] (one set per
-    scan) replaces the RANSAC draws from ``generator``."""
+    ``ground_uniforms`` float32[..., num_iterations, ransac_n] and
+    ``downsample_uniforms`` float32[..., capacity] of the random
+    downsampler (one set per scan, or one for all) replace the draws from
+    ``generator``."""
     stages = stage_functions(settings)
 
     def run(buf: ScanBuffer, params: PipelineParams,
             generator: Optional[torch.Generator],
-            ground_uniforms: Optional[torch.Tensor] = None):
+            ground_uniforms: Optional[torch.Tensor] = None,
+            downsample_uniforms: Optional[torch.Tensor] = None):
         plane = torch.full(
             buf.batch_shape + (4,), float("nan"), dtype=torch.float32, device=buf.device
         )
         for _, fn in stages:
-            buf, aux = fn(buf, params, generator, ground_uniforms)
+            buf, aux = fn(buf, params, generator, ground_uniforms, downsample_uniforms)
             if aux is not None:
                 plane = aux
         return buf, plane

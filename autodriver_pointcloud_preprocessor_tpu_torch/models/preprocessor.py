@@ -2,7 +2,7 @@
 
 Port of ``autodriver_pointcloud_preprocessor_tpu/models/preprocessor.py``.
 ``Preprocessor`` owns the config, the pipeline for its settings, the
-RANSAC generator and the per-stage timing dict; the runtime node and the
+random generator and the per-stage timing dict; the runtime node and the
 streaming engine wrap it.
 
 Batches: ``process_batch`` runs a list of same-capacity buffers either as
@@ -56,7 +56,8 @@ class Preprocessor:
             real per-stage wall times under the reference's keys. When
             False only ``preprocessing_time`` is recorded (the production
             mode).
-        seed: seed of the engine's RANSAC generator.
+        seed: seed of the engine's generator (the RANSAC draws and the
+            random downsampler's, drawn anew for every scan).
         device: where the engine's tensors live (default ``cuda:0``;
             raises without a card unless a device is given).
     """
@@ -153,17 +154,23 @@ class Preprocessor:
         return resolve
 
     def process_buffer(
-        self, buf: ScanBuffer, ground_uniforms: Optional[torch.Tensor] = None
+        self,
+        buf: ScanBuffer,
+        ground_uniforms: Optional[torch.Tensor] = None,
+        downsample_uniforms: Optional[torch.Tensor] = None,
     ) -> Tuple[ScanBuffer, torch.Tensor]:
         """Device buffer in -> device buffer and plane float32[4] out.
 
-        ``ground_uniforms`` float32[num_iterations, ransac_n] replaces the
-        generator's RANSAC draws (the tests feed the reference's)."""
+        ``ground_uniforms`` float32[num_iterations, ransac_n] and
+        ``downsample_uniforms`` float32[capacity] replace the generator's
+        RANSAC and random-downsampler draws (the tests feed the
+        reference's)."""
         start = get_current_time(monotonic=True)
+        draws = (ground_uniforms, downsample_uniforms)
         if self.profile:
-            buf, plane = self._run_profiled(buf, ground_uniforms)
+            buf, plane = self._run_profiled(buf, *draws)
         else:
-            buf, plane = self._run(buf, self.params, self.generator, ground_uniforms)
+            buf, plane = self._run(buf, self.params, self.generator, *draws)
         self.processing_times["preprocessing_time"] = get_time_difference(
             start, get_current_time(monotonic=True)
         )
@@ -174,6 +181,7 @@ class Preprocessor:
         bufs: Sequence[ScanBuffer],
         sequential: bool = False,
         ground_uniforms: Optional[torch.Tensor] = None,
+        downsample_uniforms: Optional[torch.Tensor] = None,
     ) -> Tuple[List[ScanBuffer], torch.Tensor]:
         """Process a list of same-capacity single-scan buffers.
 
@@ -181,7 +189,8 @@ class Preprocessor:
         scans at once, so each kernel launches as often as for one scan.
         ``sequential=True``: single-scan runs one after another on the
         current stream. ``ground_uniforms`` float32[B, num_iterations,
-        ransac_n] gives each scan its RANSAC draws.
+        ransac_n] and ``downsample_uniforms`` float32[B, capacity] give
+        each scan its RANSAC and random-downsampler draws.
         Returns (list of ScanBuffers, planes float32[B, 4]).
         """
         if not bufs:
@@ -190,13 +199,15 @@ class Preprocessor:
         if sequential:
             runs = [
                 self._run(b, self.params, self.generator,
-                          None if ground_uniforms is None else ground_uniforms[i])
+                          *(None if d is None else d[i]
+                            for d in (ground_uniforms, downsample_uniforms)))
                 for i, b in enumerate(bufs)
             ]
             outs, planes = [r[0] for r in runs], torch.stack([r[1] for r in runs])
         else:
             out, planes = self._run(
-                stack_buffers(bufs), self.params, self.generator, ground_uniforms
+                stack_buffers(bufs), self.params, self.generator, ground_uniforms,
+                downsample_uniforms,
             )
             outs = unstack_buffer(out)
         self.processing_times["preprocessing_time"] = get_time_difference(
@@ -208,14 +219,16 @@ class Preprocessor:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _run_profiled(self, buf: ScanBuffer, ground_uniforms: Optional[torch.Tensor]):
+    def _run_profiled(self, buf: ScanBuffer, ground_uniforms: Optional[torch.Tensor],
+                      downsample_uniforms: Optional[torch.Tensor]):
         plane = torch.full(
             buf.batch_shape + (4,), float("nan"), dtype=torch.float32, device=buf.device
         )
         self._sync()
         for name, fn in stage_functions(self.settings, separate_stages=True):
             with self._timer.stage(STAGE_TIMING_KEYS[name]):
-                buf, aux = fn(buf, self.params, self.generator, ground_uniforms)
+                buf, aux = fn(buf, self.params, self.generator, ground_uniforms,
+                              downsample_uniforms)
                 self._sync()
             if aux is not None:
                 plane = aux

@@ -7,6 +7,7 @@ modules (``segmean``, ``window_stats``) launch hand-written CUDA kernels
 for CUDA tensors and run their plain PyTorch versions for CPU tensors.
 """
 from .compact import (
+    compact,
     compact_to,
     compaction_order,
     shrink_front,
@@ -15,8 +16,10 @@ from .compact import (
 )
 from .crop import crop_box
 from .dedup import duplicate_mask, remove_duplicates
+from .downsample import farthest_point_downsample, random_downsample, uniform_downsample
 from .finite import mask_non_finite
 from .ground import remove_ground, segment_plane
+from .height_ground import remove_ground_by_height
 from .knn import knn_exact
 from .linalg import smallest_eigenvector_sym3x3, smallest_eigvec_entries
 from .normals import estimate_normals
@@ -29,7 +32,9 @@ from .window import (
     fused_neighborhood_stats,
     fused_neighborhood_stats_reordered,
     hilbert_cell_codes,
+    hilbert_cell_codes_wide,
     hilbert_codes,
+    morton_codes,
     window_mean_knn_dist,
     window_normal_stats,
 )

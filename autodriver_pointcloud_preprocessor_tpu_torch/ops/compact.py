@@ -1,8 +1,8 @@
 """Mask compaction: move live points to the front of a (smaller) buffer.
 
 Port of ``autodriver_pointcloud_preprocessor_tpu/ops/compact.py``
-(``compact_to``, ``shrink_front``, ``stream_compact_to``, ``subsample_to``).
-The first three keep the order of surviving points; ``subsample_to`` keeps
+(``compact``, ``compact_to``, ``shrink_front``, ``stream_compact_to``,
+``subsample_to``). All but the last keep the order of surviving points; ``subsample_to`` keeps
 an unbiased hash-priority subset. Buffers may carry a batch axis; each scan
 compacts on its own.
 """
@@ -14,7 +14,7 @@ from ..core.scan import ScanBuffer
 from .segmean import compact_rows
 
 __all__ = [
-    "compact_to", "compaction_order", "gather_columns", "shrink_front", "stream_compact_to",
+    "compact", "compact_to", "compaction_order", "gather_columns", "shrink_front", "stream_compact_to",
     "subsample_to",
 ]
 
@@ -49,6 +49,11 @@ def compact_to(buf: ScanBuffer, capacity: int) -> ScanBuffer:
         mask=torch.arange(capacity, device=buf.device) < n,
         attributes={k: gather_columns(v, idx) for k, v in buf.attributes.items()},
     )
+
+
+def compact(buf: ScanBuffer) -> ScanBuffer:
+    """Move every live point to the front, in order (same capacity)."""
+    return compact_to(buf, buf.capacity)
 
 
 def shrink_front(buf: ScanBuffer, capacity: int) -> ScanBuffer:

@@ -47,6 +47,8 @@ def segment_plane(
     ransac_n: int = 5,
     num_iterations: int = 100,
     uniforms: Optional[torch.Tensor] = None,
+    live_prefix: bool = False,
+    score_subsample: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Find the dominant plane among live points, per scan.
 
@@ -54,6 +56,13 @@ def segment_plane(
     picks the ``floor(u[h, j] * count)``-th live point in buffer order.
     A batched buffer [B, ...] fits each scan with its own draws
     ``u[b]`` (float32[B, H, n]; [H, n] draws serve every scan).
+
+    ``live_prefix`` promises that the live points fill slots [0, count)
+    (the voxel stage's output): the draw is then the slot itself, the same
+    slot the rank lookup finds on such input. ``score_subsample`` > 0
+    (and below the capacity) runs the hypothesis vote on every
+    ``capacity // score_subsample``-th slot, a strided view; the refit and
+    the inlier mask still use every live point.
 
     Dead rows may hold NaN coordinates; they are zeroed first, so that the
     refit's weighted sums (NaN * 0 = NaN) stay finite. The reference does
@@ -80,27 +89,35 @@ def segment_plane(
                 f"{lead + (num_iterations, ransac_n)}"
             )
         u = u.expand(lead + (num_iterations, ransac_n))
-    csum = torch.cumsum(buf.mask.to(torch.int32), -1, dtype=torch.int32)
-    safe_count = torch.clamp(csum[..., -1:], min=1)[..., None]  # [..., 1, 1]
-    draw = torch.minimum((u * safe_count).to(torch.int32), safe_count - 1)
-    # the (draw+1)-th live point: cumsum(mask) is monotone, so a left
-    # searchsorted finds the same slot a stable live-first order would
-    sample_idx = torch.clamp(
-        torch.searchsorted(csum, (draw + 1).reshape(lead + (-1,)), side="left"),
-        max=cap - 1,
-    )  # [..., H * n]
+    if live_prefix:
+        count = buf.mask.sum(-1, dtype=torch.int32, keepdim=True)
+    else:
+        csum = torch.cumsum(buf.mask.to(torch.int32), -1, dtype=torch.int32)
+        count = csum[..., -1:]
+    safe_count = torch.clamp(count, min=1)[..., None]  # [..., 1, 1]
+    draw = torch.minimum((u * safe_count).to(torch.int32), safe_count - 1).reshape(lead + (-1,))
+    if live_prefix:  # the (draw+1)-th live point sits at slot draw
+        sample_idx = draw.to(torch.int64)
+    else:
+        # the (draw+1)-th live point: cumsum(mask) is monotone, so a left
+        # searchsorted finds the same slot a stable live-first order would
+        sample_idx = torch.clamp(torch.searchsorted(csum, draw + 1, side="left"), max=cap - 1)
     normals, ds = _fit_planes_batched(*(
         torch.gather(c, -1, sample_idx).reshape(u.shape) for c in (x, yy, zz)
     ))
 
     thresh = torch.as_tensor(distance_threshold, dtype=x.dtype, device=dev)
+    vx, vy, vz, vm = x, yy, zz, buf.mask
+    if 0 < score_subsample < cap:
+        stride = cap // score_subsample
+        vx, vy, vz, vm = (v[..., ::stride] for v in (x, yy, zz, buf.mask))
     dist = torch.abs(
-        x[..., :, None] * normals[..., 0, None, :]
-        + yy[..., :, None] * normals[..., 1, None, :]
-        + zz[..., :, None] * normals[..., 2, None, :]
+        vx[..., :, None] * normals[..., 0, None, :]
+        + vy[..., :, None] * normals[..., 1, None, :]
+        + vz[..., :, None] * normals[..., 2, None, :]
         + ds[..., None, :]
-    )  # [..., N, H]
-    votes = ((dist <= thresh) & buf.mask[..., :, None]).sum(dim=-2)
+    )  # [..., N (or N / stride), H]
+    votes = ((dist <= thresh) & vm[..., :, None]).sum(dim=-2)
     best = torch.argmax(votes, dim=-1, keepdim=True)  # first maximum, as jnp.argmax
 
     # terminal refinement: least-squares refit on the winning inliers;
@@ -143,11 +160,14 @@ def remove_ground(
     ransac_n: int = 5,
     num_iterations: int = 100,
     uniforms: Optional[torch.Tensor] = None,
+    live_prefix: bool = False,
+    score_subsample: int = 0,
 ) -> Tuple[ScanBuffer, torch.Tensor]:
     """Mask out the dominant plane's inliers. Returns (buffer, plane
-    float32[..., 4])."""
+    float32[..., 4]); ``live_prefix`` and ``score_subsample`` as in
+    ``segment_plane``."""
     plane, inliers = segment_plane(
         buf, generator, distance_threshold, ransac_n, num_iterations,
-        uniforms=uniforms,
+        uniforms=uniforms, live_prefix=live_prefix, score_subsample=score_subsample,
     )
     return buf.with_mask(~inliers), plane

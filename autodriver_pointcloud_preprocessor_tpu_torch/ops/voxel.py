@@ -10,19 +10,21 @@ Hilbert-curve order of the voxel cells with ``curve_order``.
 ``dedup_exact`` excludes exact duplicate coordinates from the segment
 statistics (bit-exact coordinate keys ride as secondary sort keys), which
 equals ``remove_duplicates`` followed by the voxel stage.
-``compact_keys='box'`` drops the voxel-index keys: the 30-bit Hilbert key
-alone identifies the voxel, which holds while the live points span at most
-1008 cells per axis (the caller's promise). The sort is stable, so among
+``compact_keys`` drops the voxel-index keys: the Hilbert key alone
+identifies the voxel, which holds while the live points span at most 1008
+cells per axis (``'box'``, one 30-bit key) or 2**20 - 64 cells (``'wide'``,
+a 60-bit key as an (hi, lo) int32 pair, two 32-bit keys of the int64
+sort passes), the caller's promise. The sort is stable, so among
 exact duplicates the first copy in buffer order donates the attributes:
 the reference's ``first_attrs=True``. Its ``first_attrs=False`` lets any
 copy donate, so this is one of its allowed outcomes too; the setting
-(``voxel_first_attrs``) changes nothing here.
+(``voxel_first_attrs``) changes nothing here. Integer attributes wider
+than 16 bits on the host (not exact in float32) take the value of the
+segment's first row by a gather: the row's index rides K2 as one more
+channel.
 
 A batched buffer sorts and reduces each scan on its own: the sorts run
 along the last axis and K2 takes the batch in one launch.
-
-Not ported yet: the ``'wide'`` compact-key tier and integer attributes
-wider than 16 bits on the host (ROADMAP item 5).
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ import torch
 from ..core.scan import ATTR_HOST_DTYPES, ScanBuffer
 from .dedup import _coordinate_keys, lexsort, signed_key
 from .segmean import segmented_sums
-from .window import _SENTINEL, hilbert_cell_codes
+from .compact import gather_columns
+from .window import _SENTINEL, hilbert_cell_codes, hilbert_cell_codes_wide
 
 __all__ = ["sorted_voxel_channels", "voxel_downsample"]
 
@@ -48,7 +51,7 @@ def voxel_downsample(
     compact_keys: bool | str = False,
 ) -> ScanBuffer:
     """Average live points within each cubic voxel of edge ``voxel_size``."""
-    channels, run_start, mean_rows, first_rows = sorted_voxel_channels(
+    channels, run_start, mean_rows, first_rows, gathered = sorted_voxel_channels(
         buf, voxel_size, dedup_exact, curve_order, compact_keys
     )
     sums = torch.cat([
@@ -69,6 +72,11 @@ def voxel_downsample(
         rows = torch.round(sums[..., ch : ch + nrows, :])
         attrs[name] = rows.reshape(orig.shape).to(orig.dtype)
         ch += nrows
+    if gathered:
+        # the first row's input index (exact in float32 below 2**24 slots)
+        first_idx = torch.clamp((sums[..., ch, :] + 0.5).to(torch.int64), 0, buf.capacity - 1)
+        for name in gathered:
+            attrs[name] = gather_columns(buf.attributes[name], first_idx)
     return ScanBuffer(positions=sums[..., 1:4, :] / denom, mask=counts > 0, attributes=attrs)
 
 
@@ -82,20 +90,19 @@ def sorted_voxel_channels(
     """The voxel sort: the K2 input of ``voxel_downsample``.
 
     Returns ``(channels float32[..., C, N], run_start bool[..., N],
-    mean_rows, first_rows)``: channels are [w, x*w, y*w, z*w] followed by the float
-    attribute rows times w and the narrow integer rows times the run-start
-    flag, all in sort order (w = 1 on included rows); ``mean_rows`` and
-    ``first_rows`` list (attribute name, row count) in channel order.
-    Invalid rows sort last with all-zero channels; each is its own run, so
-    the voxel sums are unchanged and no K2 thread walks the dead tail.
+    mean_rows, first_rows, gathered)``: channels are [w, x*w, y*w, z*w]
+    followed by the float attribute rows times w, the narrow integer rows
+    times the run-start flag and, when any attribute is ``gathered``, the
+    input index times the run-start flag, all in sort order (w = 1 on
+    included rows); ``mean_rows`` and ``first_rows`` list (attribute name,
+    row count) in channel order, ``gathered`` the names of the wide
+    integer attributes. Invalid rows sort last with all-zero channels;
+    each is its own run, so the voxel sums are unchanged and no K2 thread
+    walks the dead tail.
     """
     if compact_keys is True:
         compact_keys = "box"
-    if compact_keys == "wide":
-        raise NotImplementedError(
-            "compact_keys='wide' is not ported yet (ROADMAP item 5)"
-        )
-    if compact_keys not in (False, "box"):
+    if compact_keys not in (False, "box", "wide"):
         raise ValueError(f"unknown compact_keys tier {compact_keys!r}")
     if compact_keys and not curve_order:
         raise ValueError("compact_keys requires curve_order")
@@ -115,29 +122,29 @@ def sorted_voxel_channels(
         for c in (x, y, z)
     )
 
-    mean_rows, first_rows = [], []  # (name, row tensors)
+    mean_rows, first_rows, gathered = [], [], []  # (name, row tensors); names
     for name, arr in sorted(buf.attributes.items()):
-        rows = arr.reshape(lead + (-1, n)).to(torch.float32).unbind(-2)
         if arr.dtype.is_floating_point:
-            mean_rows.append((name, rows))
+            mean_rows.append((name, arr.reshape(lead + (-1, n)).to(torch.float32).unbind(-2)))
         elif np.dtype(ATTR_HOST_DTYPES.get(name, np.int64)).itemsize <= 2:
-            first_rows.append((name, rows))
+            first_rows.append((name, arr.reshape(lead + (-1, n)).to(torch.float32).unbind(-2)))
         else:
-            raise NotImplementedError(
-                f"attribute {name!r}: integer attributes wider than 16 bits "
-                "on the host are not ported yet (ROADMAP item 5)"
-            )
+            gathered.append(name)
 
     keys = []
     if curve_order:
+        half = 1 << 19 if compact_keys == "wide" else 512
         cells = []
         for v in (vx, vy, vz):
             lo = torch.where(valid, v, big).amin(-1, keepdim=True)
             hi = torch.where(valid, v, -big).amax(-1, keepdim=True)
             center = lo + (hi - lo) // 2
-            cells.append(torch.clamp(v - center + 512, 0, 1023))
-        hkey = hilbert_cell_codes(cells, valid)
-        keys.append(signed_key(hkey))
+            cells.append(torch.clamp(v - center + half, 0, 2 * half - 1))
+        if compact_keys == "wide":
+            hkeys = hilbert_cell_codes_wide(cells, valid)
+        else:
+            hkeys = (hilbert_cell_codes(cells, valid),)
+        keys += [signed_key(h) for h in hkeys]
     if not compact_keys:
         keys += [signed_key(v) for v in (vx, vy, vz)]
     if dedup_exact:
@@ -149,10 +156,10 @@ def sorted_voxel_channels(
         return v.gather(-1, order)
 
     if curve_order:
-        svalid = by_order(hkey) < _SENTINEL
+        svalid = by_order(hkeys[0]) < _SENTINEL
     else:
         svalid = by_order(vx) < _BIG
-    ident = (hkey,) if compact_keys else (vx, vy, vz)
+    ident = hkeys if compact_keys else (vx, vy, vz)
 
     def repeats(keys_):
         """True where a sorted row's keys all equal the previous row's."""
@@ -180,9 +187,12 @@ def sorted_voxel_channels(
         channels += [torch.where(included, by_order(r), zero) * w for r in rows]
     for _, rows in first_rows:
         channels += [torch.where(included, by_order(r), zero) * flag_f for r in rows]
+    if gathered:
+        channels.append(order.to(torch.float32) * flag_f)
     return (
         torch.stack(channels, dim=-2),
         new_group | ~svalid,
         [(name, len(rows)) for name, rows in mean_rows],
         [(name, len(rows)) for name, rows in first_rows],
+        gathered,
     )

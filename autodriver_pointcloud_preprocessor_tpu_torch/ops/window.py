@@ -37,7 +37,9 @@ __all__ = [
     "fused_neighborhood_stats",
     "fused_neighborhood_stats_reordered",
     "hilbert_cell_codes",
+    "hilbert_cell_codes_wide",
     "hilbert_codes",
+    "morton_codes",
     "window_mean_knn_dist",
     "window_normal_stats",
 ]
@@ -117,6 +119,34 @@ def hilbert_cell_codes(cells, mask: torch.Tensor) -> torch.Tensor:
         | (_spread_bits_10(X[1]) << 1)
         | _spread_bits_10(X[2])
     )
+    return torch.where(mask, code, _SENTINEL)
+
+
+def hilbert_cell_codes_wide(cells, mask: torch.Tensor):
+    """60-bit Hilbert index as an (hi, lo) int32 pair from cells in
+    [0, 2**20); invalid rows get the sentinel in both.
+
+    ``hi`` interleaves each axis's top 10 transposed bits, ``lo`` the low
+    10: the lexicographic order of (hi, lo) is the 60-bit index's, and the
+    pair identifies the cell. Every intermediate stays below 2**20, so the
+    int32 arithmetic cannot wrap.
+    """
+    X = _hilbert_transpose(cells, 20)
+
+    def interleave(shift):
+        return (
+            (_spread_bits_10((X[0] >> shift) & 0x3FF) << 2)
+            | (_spread_bits_10((X[1] >> shift) & 0x3FF) << 1)
+            | _spread_bits_10((X[2] >> shift) & 0x3FF)
+        )
+
+    return torch.where(mask, interleave(10), _SENTINEL), torch.where(mask, interleave(0), _SENTINEL)
+
+
+def morton_codes(positions, mask, origin_shift: float = 0.0) -> torch.Tensor:
+    """30-bit Morton (Z-order) code per point, invalid rows last."""
+    qx, qy, qz = _quantize_axes(positions, mask, origin_shift)
+    code = _spread_bits_10(qx) | (_spread_bits_10(qy) << 1) | (_spread_bits_10(qz) << 2)
     return torch.where(mask, code, _SENTINEL)
 
 

@@ -57,10 +57,38 @@ radius outliers, K3 with the second radius in the fused sweep) and
 15. (g) K3's kernel and plain times at config 2's shapes for sweep with
     ``radius2`` and for bisect, beside their bounds.
 
+The configuration surface (every launch count is set to 0 just before a
+path and read just after, and must be the path's count a scan times the
+scans; every path runs once more on the CPU with the same draws, survivor
+jaccard >= 0.99):
+
+16. (h) ``bench_suite.py`` config 6, the 1M-point merged cloud (1,000,000
+    points at capacity 1,048,576, the 'wide' voxel keys): K1 (3 x
+    1,048,576 -> 524,288) and K2 (4 x 524,288) bit for bit and K3 (both
+    passes at 409,600 rows, sweep k=16 wb=1 with moments) against their
+    plain versions on a CPU copy, then their kernel, plain, library and
+    bound times at those shapes.
+17. (i) Config 6 through ``build_pipeline``: 23 scans (1/1/2 a scan) and
+    one full-size CPU run.
+18. (j) Config 7 (the reference's stage order) through ``Preprocessor``,
+    the bench scene in a spinning sensor's azimuth order (1/1/2), and two
+    scans in the scene's own order, whose ground points fill the pre-voxel
+    bucket so that both the card and the CPU keep nothing (ROADMAP fault
+    10).
+19. (k) Config 3 (RANSAC alone, 0/0/0) and (l) config 1 (crop and voxel,
+    0/1/0) through ``build_pipeline``.
+20. (m) ``Preprocessor({})``, the defaults (0/1/2).
+21. (n) Production with the random, uniform and farthest-point
+    downsamplers (1/0/2; FPS 6 scans).
+22. (o) Production with the height cut (1/1/2).
+23. p50 and p90 ms a scan of every path.
+
 With ``--profile DIR`` it also traces, with torch.profiler, 5 single scans
-and one vmapped batch of the production preset and of config 2, and 5
-QUALITY scans, and writes the time per operator (device and host) to
-``DIR/profile.txt``.
+and one vmapped batch of the production preset and of config 2, 5
+QUALITY scans and 5 scans of each path of phases 17-22 (3 of config 6,
+1 of FPS and of config 7 in scene order), and writes the time per
+operator (device and host) to ``DIR/profile.txt``, each table headed by
+its device-busy share, launches and syncs.
 
 Prints the card, the numbers, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing any
@@ -591,6 +619,280 @@ def outlier_slice(dev, quality_cfg):
             "profile": profile}
 
 
+#: bench_suite.py config 6 (:353-400): the 1M-point merged cloud
+CONFIG6_POINTS, CONFIG6_CAPACITY = 1_000_000, 1_048_576
+CONFIG6_SETTINGS = dict(
+    remove_statistical_outliers=True, nb_neighbors=16, estimate_normals=True,
+    max_neighbors=16, remove_ground=True, ransac_n=3, num_iterations=64,
+    knn_method="window", ground_before_voxel=True, voxel_compact_keys="wide",
+    post_downsample_capacity=409_600, pre_voxel_compact_capacity=524_288,
+)
+CONFIG6_PARAMS = dict(voxel_size=0.05, distance_threshold=0.12)
+CONFIG6_SHAPES = {
+    "masked_compact": "3 x 1048576 -> 524288",
+    "segmented_sums": "4 x 524288",
+    "window_stats": "409600 rows, sweep k=16 wb=1 moments, 2 passes",
+}
+#: bench_suite.py config 3 (:162-188) and config 1 (:103-126)
+CONFIG3_SETTINGS = dict(
+    remove_duplicates=False, crop_to_roi=False, voxel_downsample=False,
+    estimate_normals=False, remove_ground=True, ransac_n=3, num_iterations=100,
+)
+CONFIG1_SETTINGS = dict(
+    remove_duplicates=False, remove_nans=True, remove_infs=True, crop_to_roi=True,
+    voxel_downsample=True, estimate_normals=False,
+)
+
+
+def sensor_order(soa: dict) -> dict:
+    """The scan's points in a spinning sensor's firing order (by azimuth,
+    non-finite rows last): ground and objects interleave. In the bench
+    scene's own order every ground point comes first."""
+    pts = soa["positions"]
+    order = np.argsort(np.arctan2(pts[:, 1], pts[:, 0]), kind="stable")
+    return {k: v[order] for k, v in soa.items()}
+
+
+def same_set_jaccard(a: set, b: set) -> float:
+    """Jaccard of two survivor sets; 1.0 when both are empty."""
+    return 1.0 if not (a or b) else jaccard(a, b)
+
+
+def surface_slice(dev, production_cfg):
+    """Phases 16-23: the configuration surface (see the module docstring).
+    Returns K1-K3's numbers at config 6's shapes, each path's launch
+    counts, the profile runs and the paths' timings."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.core import from_soa, to_soa
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import (
+        PipelineParams, PipelineSettings, build_pipeline, stage_functions,
+    )
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.preprocessor import Preprocessor
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops import _build
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops.segmean import (
+        compact_rows, compact_rows_plain, run_ids, segmented_sums, segmented_sums_plain,
+    )
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops.voxel import sorted_voxel_channels
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops.window import _sorted_rows
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops.window_stats import (
+        window_stats, window_stats_plain,
+    )
+
+    launches, timings, profile = {}, {}, []
+
+    def drive(tag, one_scan, per_scan, scans=WARMUP + TIMED, warm=WARMUP, allow_empty=False):
+        """``scans`` runs of ``one_scan(i) -> out soa``, the first ``warm``
+        untimed; the counts are set to 0 just before and read just after,
+        and must be ``per_scan`` (K1, K2, K3) times the scans. Returns the
+        last scan's survivor set."""
+        times, sizes = [], []
+        _build.reset_launches()
+        for i in range(scans):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            soa = one_scan(i)
+            end.record()
+            torch.cuda.synchronize()
+            n = soa["positions"].shape[0]
+            check((allow_empty or n > 0) and n < N_POINTS * 8,
+                  f"{tag} scan {i}: {n} survivors")
+            check(bool(np.isfinite(soa["positions"]).all()), f"{tag} scan {i}: non-finite survivors")
+            if i >= warm:
+                times.append(start.elapsed_time(end))
+            sizes.append(n)
+        got = tuple(_build.LAUNCHES[k] for k in KERNELS)
+        want = tuple(scans * c for c in per_scan)
+        check(got == want, f"{tag}: launches {got} in {scans} scans, expected {want}")
+        launches[tag] = dict(zip(KERNELS, got))
+        p50, p90 = float(np.median(times)), float(np.percentile(times, 90))
+        timings[tag] = {"p50_ms": p50, "p90_ms": p90, "scans": len(times)}
+        print(f"[chip_smoke] {tag}: {scans} scans ok, launches {json.dumps(launches[tag])} "
+              f"({per_scan} a scan); p50 {p50:.3f} ms/scan, p90 {p90:.3f} (CUDA events, from_soa.."
+              f"to_soa, {len(times)} timed), survivors {min(sizes)}..{max(sizes)}")
+        return position_set(soa)
+
+    def vs_cpu(tag, gpu_set, cpu_soa, seconds, note=""):
+        cpu_set = position_set(cpu_soa)
+        j = same_set_jaccard(gpu_set, cpu_set)
+        print(f"[chip_smoke] {tag} GPU vs CPU: survivors {len(gpu_set)} vs {len(cpu_set)}, jaccard "
+              f"{j:.5f} (CPU run {seconds:.1f} s{note})")
+        check(j >= 0.99, f"{tag} GPU vs CPU jaccard {j:.5f} < 0.99")
+
+    # ---- (h) config 6's kernels against their plain versions -------------
+    t0 = time.perf_counter()
+    settings6 = PipelineSettings(**CONFIG6_SETTINGS)
+    run6 = build_pipeline(settings6)
+    params6 = PipelineParams.make(**CONFIG6_PARAMS, device=dev)
+    stages6 = dict(stage_functions(settings6))
+    soa6 = {"positions": scene(CONFIG6_POINTS)}
+    H6, n6 = settings6.num_iterations, settings6.ransac_n
+    u6 = torch.from_numpy(np.random.default_rng(6).uniform(size=(H6, n6)).astype(np.float32))
+    buf6, _ = from_soa(soa6, capacity=CONFIG6_CAPACITY, device=dev)
+    b = buf6
+    for name in ("non_finite", "crop", "ground"):
+        b, _ = stages6[name](b, params6, None, u6.to(dev))
+    k1_rows, k1_mask = b.positions.contiguous(), b.mask
+    pcap = settings6.pre_voxel_compact_capacity
+    check(int(k1_mask.sum()) <= pcap, f"(h) config 6: {int(k1_mask.sum())} live > the {pcap} bucket")
+    b = stages6["pre_compact"](b, params6)[0]
+    k2_vals, k2_flags, _, _, _ = sorted_voxel_channels(
+        b, params6.voxel_size, dedup_exact=True, curve_order=True, compact_keys="wide")
+    b = stages6["voxel"](b, params6)[0]
+    cap6 = settings6.post_downsample_capacity
+    live6 = int(b.mask.sum())
+    check(live6 <= cap6, f"(h) config 6: {live6} voxels overflow the {cap6} bucket")
+    p0 = [b.positions[c, :cap6].contiguous() for c in range(3)] + [b.mask[:cap6].contiguous()]
+    k3_rows6 = {"pass0": p0, "pass1": list(_sorted_rows(torch.stack(p0[:3]), p0[3], 1))}
+    k3_kw6 = {p: dict(k=settings6.nb_neighbors, window_blocks=1, kmode="sweep", direction=d,
+                      moments=True) for p, d in (("pass0", 0), ("pass1", 1))}
+    print(f"[chip_smoke] (h) config 6 shapes: K1 {tuple(k1_rows.shape)} live {int(k1_mask.sum())} "
+          f"-> {pcap}; K2 {tuple(k2_vals.shape)} runs {int(k2_flags[1:].sum()) + 1}; K3 {cap6} "
+          f"rows, {live6} live voxels, 'wide' keys")
+    err6 = {}
+    outs, new_mask = compact_rows([k1_rows], k1_mask, pcap)
+    want, want_mask = compact_rows_plain([k1_rows.cpu()], k1_mask.cpu(), pcap)
+    check(torch.equal(bits(outs[0]), bits(want[0])) and torch.equal(new_mask.cpu(), want_mask),
+          "(h) K1 at config 6's shapes is not bit-exact against its plain version")
+    err6["masked_compact"] = 0.0
+    got = segmented_sums(k2_vals, k2_flags).cpu()
+    ref = segmented_sums_plain(k2_vals.cpu(), k2_flags.cpu())
+    check(torch.equal(bits(got), bits(ref)), "(h) K2 at config 6's shapes is not bit-equal to plain")
+    err6["segmented_sums"] = float((got - ref).abs().max())
+    err6["window_stats"] = max(
+        check_k3_plain(f"config 6 {p}", window_stats(*k3_rows6[p], params6.search_radius, **kw),
+                       k3_rows6[p], kw, params6.search_radius)
+        for p, kw in k3_kw6.items())
+    print(f"[chip_smoke] (h) config 6 kernels vs plain max abs err {json.dumps(err6)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- (h) their times at config 6's shapes ----------------------------
+    t0 = time.perf_counter()
+    k6 = {}
+    km, pm = interleaved_ms(lambda: compact_rows([k1_rows], k1_mask, pcap),
+                            lambda: compact_rows_plain([k1_rows], k1_mask, pcap), reps=10)
+    lib = event_ms(lambda: k1_rows[:, k1_mask], 10)
+    k6["masked_compact"] = (km, pm, lib, *bound(*k1_work(k1_rows, k1_mask, pcap)))
+    n2 = k2_vals.shape[-1]
+    ids = run_ids(k2_flags)
+    km, pm = interleaved_ms(lambda: segmented_sums(k2_vals, k2_flags),
+                            lambda: segmented_sums_plain(k2_vals, k2_flags), reps=10)
+    lib = event_ms(lambda: torch.zeros_like(k2_vals).index_add_(1, ids, k2_vals), 10)
+    k6["segmented_sums"] = (km, pm, lib, *bound(*k2_work(k2_vals, k2_flags)))
+    r2 = (params6.search_radius ** 2).reshape(1)
+    k3_km = k3_pm = nbytes = flops = 0.0
+    for p, kw in k3_kw6.items():
+        rows = k3_rows6[p]
+        km, pm = interleaved_ms(
+            lambda rows=rows, kw=kw: window_stats(*rows, params6.search_radius, **kw),
+            lambda rows=rows, kw=kw: window_stats_plain(
+                *rows, r2, kw["k"], kw["window_blocks"], kw["kmode"], kw["direction"],
+                kw["moments"]),
+            reps=3,
+        )
+        mom0 = window_stats(*rows, params6.search_radius, **kw)[2][0]
+        bb, ff = k3_work(rows, kw["k"], 1, kw["direction"], True, mom0, kmode="sweep")
+        nbytes, flops = nbytes + bb, flops + ff
+        k3_km, k3_pm = k3_km + km, k3_pm + pm
+        print(f"[chip_smoke] (h) K3 config 6 {p}: kernel {km:.4f} ms, plain {pm:.4f} ms")
+    k6["window_stats"] = (k3_km, k3_pm, None, *bound(nbytes, flops))
+    for k, (km, pm, lib, bms, by) in k6.items():
+        lib_txt = "none" if lib is None else f"{lib:.4f} ms"
+        print(f"[chip_smoke] (h) {k} at config 6's shapes: kernel {km:.4f} ms, plain torch "
+              f"{pm:.4f} ms, library {lib_txt}, bound {bms:.4f} ms ({by}), kernel/bound "
+              f"{km / bms:.1f}x")
+    print(f"[chip_smoke] (h) took {time.perf_counter() - t0:.1f} s")
+
+    # ---- (i) config 6 through build_pipeline, and once on the CPU --------
+    t0 = time.perf_counter()
+
+    u6_d = u6.to(dev)
+
+    def config6_scan(i):
+        scan, meta = from_soa(soa6, capacity=CONFIG6_CAPACITY, device=dev)
+        return to_soa(run6(scan, params6, None, u6_d)[0], meta)
+
+    set6 = drive("config6", config6_scan, (1, 1, 2))
+    t1 = time.perf_counter()
+    cpu6 = to_soa(run6(from_soa(soa6, capacity=CONFIG6_CAPACITY, device="cpu")[0],
+                       PipelineParams.make(**CONFIG6_PARAMS, device="cpu"), None, u6)[0])
+    vs_cpu("(i) config 6", set6, cpu6, time.perf_counter() - t1, f", full size: {CONFIG6_POINTS:,} points")
+    print(f"[chip_smoke] (i) took {time.perf_counter() - t0:.1f} s")
+    profile.append(("config 6: 3 single scans", lambda: [config6_scan(i) for i in range(3)]))
+
+    # ---- (j)-(o) the 128k paths ----------------------------------------
+    soa_bench = bench_soa()
+    soa_sensor = sensor_order(soa_bench)
+
+    def engine_path(tag, cfg, soa, per_scan, scans=WARMUP + TIMED, warm=WARMUP, **kw):
+        """``cfg`` through ``Preprocessor.process_buffer`` on the card with
+        fixed draws (RANSAC's, and the random downsampler's at the stage's
+        capacity), then once on the CPU with the same draws."""
+        t0 = time.perf_counter()
+        engine = Preprocessor(cfg, seed=0)
+        s = engine.settings
+        gu = torch.from_numpy(np.random.default_rng(7).uniform(
+            size=(s.num_iterations, s.ransac_n)).astype(np.float32))
+        ds_cap = s.pre_voxel_compact_capacity or CAPACITY
+        du = torch.from_numpy(np.random.default_rng(8).uniform(size=ds_cap).astype(np.float32))
+        gu_d, du_d = gu.to(dev), du.to(dev)
+
+        def one(i):
+            scan, meta = from_soa(soa, capacity=CAPACITY, device=dev)
+            return to_soa(engine.process_buffer(scan, gu_d, du_d)[0], meta)
+
+        got = drive(tag, one, per_scan, scans, warm, **kw)
+        cpu_engine = Preprocessor(cfg, seed=0, device="cpu")
+        t1 = time.perf_counter()
+        scan, meta = from_soa(soa, capacity=CAPACITY, device="cpu")
+        vs_cpu(tag, got, to_soa(cpu_engine.process_buffer(scan, gu, du)[0], meta),
+               time.perf_counter() - t1)
+        print(f"[chip_smoke] {tag} took {time.perf_counter() - t0:.1f} s")
+        n_prof = 1 if scans < WARMUP + TIMED else 5
+        profile.append((f"{tag}: {n_prof} single scan(s)", lambda: [one(i) for i in range(n_prof)]))
+        return got
+
+    config7 = {**production_cfg, "remove_ground.before_voxel": False, "downsample.max_points": 0}
+    engine_path("config7", config7, soa_sensor, (1, 1, 2))
+    # the bench scene's own order: the 65536 bucket ahead of ground removal
+    # holds ground points only (ROADMAP fault 10), on the card and the CPU
+    engine_path("config7_scene_order", config7, soa_bench, (1, 1, 2), scans=2, warm=1,
+                allow_empty=True)
+    soa_pos = {"positions": soa_bench["positions"]}
+
+    def settings_path(tag, settings_kw, params_kw, per_scan, draws=None):
+        t0 = time.perf_counter()
+        run = build_pipeline(PipelineSettings(**settings_kw))
+        params = PipelineParams.make(**params_kw, device=dev)
+
+        args = () if draws is None else (draws.to(dev),)
+
+        def one(i):
+            scan, meta = from_soa(soa_pos, capacity=CAPACITY, device=dev)
+            return to_soa(run(scan, params, None, *args)[0], meta)
+
+        got = drive(tag, one, per_scan)
+        t1 = time.perf_counter()
+        scan, meta = from_soa(soa_pos, capacity=CAPACITY, device="cpu")
+        cpu = to_soa(run(scan, PipelineParams.make(**params_kw, device="cpu"), None,
+                         *(() if draws is None else (draws,)))[0], meta)
+        vs_cpu(tag, got, cpu, time.perf_counter() - t1)
+        print(f"[chip_smoke] {tag} took {time.perf_counter() - t0:.1f} s")
+        profile.append((f"{tag}: 5 single scans", lambda: [one(i) for i in range(5)]))
+
+    u3 = torch.from_numpy(np.random.default_rng(9).uniform(size=(100, 3)).astype(np.float32))
+    settings_path("config3", CONFIG3_SETTINGS, dict(distance_threshold=0.12), (0, 0, 0), u3)
+    settings_path("config1", CONFIG1_SETTINGS, dict(voxel_size=0.08), (0, 1, 0))
+    engine_path("defaults", {}, soa_bench, (0, 1, 2))
+    for method, per_scan, scans in (("random", (1, 0, 2), WARMUP + TIMED),
+                                    ("uniform", (1, 0, 2), WARMUP + TIMED),
+                                    ("farthest_point", (1, 0, 2), 6)):
+        engine_path(f"downsample_{method}", {**production_cfg, "downsample_method": method},
+                    soa_bench, per_scan, scans=scans, warm=1 if scans < WARMUP + TIMED else WARMUP)
+    engine_path("height_ground", {**production_cfg, "remove_ground.method": "height",
+                                  "ground_plane": [0.0, 0.0, 1.0, 0.0]}, soa_bench, (1, 1, 2))
+    return {"k_config6": k6, "err_config6": err6, "launches": launches, "timings": timings,
+            "profile": profile}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
@@ -670,7 +972,7 @@ def main() -> None:
                              b.attributes["ring"].unsqueeze(-2).float(), b.positions * 2], dim=-2)
         k1_rows = torch.where(k1_mask.unsqueeze(-2), k1_rows, float("nan"))
         b = stages["pre_compact"](b, params, None, None)[0]
-        k2_vals, k2_flags, _, _ = sorted_voxel_channels(
+        k2_vals, k2_flags, _, _, _ = sorted_voxel_channels(
             b, params.voxel_size, dedup_exact=True, curve_order=True, compact_keys="box"
         )
         b = stages["voxel"](b, params, None, None)[0]
@@ -968,6 +1270,10 @@ def main() -> None:
     # ---- the outlier slice: config 2 and the QUALITY preset --------------
     slice3 = outlier_slice(dev, PRODUCTION_128K_QUALITY_CONFIG)
 
+    # ---- the configuration surface: configs 6, 7, 3, 1, the defaults, ----
+    # ---- the downsamplers and the height cut ---------------------------
+    slice4 = surface_slice(dev, cfg)
+
     if "--profile" in sys.argv:
         def single():
             for _ in range(5):
@@ -978,7 +1284,7 @@ def main() -> None:
             [("production: 5 single scans", single),
              (f"production: 1 vmapped batch of {BATCH}",
               lambda: engine.process_batch(bufs, ground_uniforms=batch_draws)),
-             *slice3["profile"]],
+             *slice3["profile"], *slice4["profile"]],
             dev, sys.argv[sys.argv.index("--profile") + 1],
         )
 
@@ -988,9 +1294,10 @@ def main() -> None:
     # config 2's shapes ride beside
     paths = {"production_single": single_launches,
              **{f"production_{m}": v for m, v in batch_launches.items()},
-             **slice3["launches"]}
+             **slice3["launches"], **slice4["launches"]}
     for name, counts in paths.items():
-        check(any(counts.values()), f"path {name} launched no kernel")
+        # config 3 (RANSAC alone) runs no kernel; drive() checked its zeros
+        check(name == "config3" or any(counts.values()), f"path {name} launched no kernel")
     kernels = []
     for k in KERNELS:
         km, pm, lib, bms, by = batch_t[k]
@@ -1008,11 +1315,17 @@ def main() -> None:
         if k == "masked_compact":
             entry["pre_compact_stage_ms"] = batch_t["pre_compact"]
             entry["single_scan"]["pre_compact_stage_ms"] = single_t["pre_compact"]
+        ckm, cpm, clib, cbms, cby = slice4["k_config6"][k]
+        entry["config6"] = {"launches": slice4["launches"]["config6"][k],
+                            "max_abs_err": slice4["err_config6"][k], "ms": ckm, "plain_ms": cpm,
+                            "bound_ms": cbms, "bound_by": cby, "library_ms": clib,
+                            "shapes": CONFIG6_SHAPES[k]}
         if k == "window_stats":
             entry["modes_run"] = ["csel", "sweep", "bisect", "moments", "radius2"]
             entry["config2"] = dict(slice3["k3_config2"],
                                     max_abs_err=slice3["k3_config2_max_abs_err"])
         kernels.append(entry)
+    print(f"[chip_smoke] configuration surface ms/scan: {json.dumps(slice4['timings'])}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -451,3 +451,90 @@ def test_window_stats_wide_windows_and_large_k_match_plain(cuda, kmode, wb, dire
     rows, valid, v = _k3_rows(11 + k + wb)
     _check_k3(cuda, rows, valid, v, dict(k=k, window_blocks=wb, kmode=kmode,
                                          direction=direction, moments=True, radius2=0.45))
+
+
+# ------------------------------------------ bench_suite.py config 6 shapes ----
+
+def test_k1_at_config6_shapes_is_bit_exact(cuda):
+    # the 1M merged cloud's pre-voxel stage: 3 position rows, 1,048,576
+    # columns, ~40% live after ground removal, into 524,288
+    rng = _rng(61)
+    n, cap = 1_048_576, 524_288
+    vals = torch.from_numpy(rng.normal(0, 20, (3, n)).astype(np.float32))
+    mask = torch.from_numpy(rng.uniform(size=n) < 0.4)
+    vals[:, ~mask] = float("nan")
+    outs, new_mask = compact_rows([vals.to(cuda)], mask.to(cuda), cap)
+    want, want_mask = compact_rows_plain([vals], mask, cap)
+    assert torch.equal(_bits(outs[0]), _bits(want[0])) and torch.equal(new_mask.cpu(), want_mask)
+
+
+def test_k2_at_config6_shapes_is_bit_equal(cuda):
+    # the wide-key voxel stage: [w, x*w, y*w, z*w] over 524,288 sorted rows,
+    # ~360k voxels, the dead tail one run per column
+    rng = _rng(62)
+    n = 524_288
+    flags = torch.from_numpy(rng.uniform(size=n) < 0.85)
+    vals = torch.from_numpy(rng.normal(0, 20, (4, n)).astype(np.float32))
+    vals[0] = 1.0
+    flags[420_000:] = True
+    vals[:, 420_000:] = 0.0
+    got = segmented_sums(vals.to(cuda), flags.to(cuda))
+    assert torch.equal(_bits(got), _bits(segmented_sums_plain(vals, flags)))
+
+
+@pytest.mark.parametrize("direction", [0, 1])
+def test_k3_at_config6_shapes_matches_plain(cuda, direction):
+    # the fused neighbourhood of config 6: sweep, k=16, wb=1, moments, at
+    # the 409,600-row bucket, ~360k live rows in curve order
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops.window import _sorted_rows
+
+    rng = _rng(63 + direction)
+    n = 409_600
+    pts = (rng.uniform(-40, 40, (300, 3))[rng.integers(0, 300, n)] * [1, 1, 0.05]
+           + rng.normal(0, 0.5, (n, 3))).astype(np.float32)
+    valid = torch.from_numpy(rng.uniform(size=n) < 0.88)
+    sx, sy, sz, sv = _sorted_rows(torch.from_numpy(pts.T.copy()), valid, direction)
+    args = dict(k=16, window_blocks=1, kmode="sweep", direction=direction, moments=True)
+    want = window_stats(sx, sy, sz, sv, 0.1, **args)
+    got = [t.cpu() for t in window_stats(sx.to(cuda), sy.to(cuda), sz.to(cuda), sv.to(cuda),
+                                         0.1, **args)]
+    rel = (got[0] - want[0]).abs() / want[0].abs().clamp(min=1e-12)
+    assert float((rel[sv] <= 1e-5).float().mean()) >= 0.999
+    assert torch.equal(got[1][sv], want[1][sv])
+    assert torch.equal(got[2][0][sv], want[2][0][sv])
+    torch.testing.assert_close(got[2][:, sv], want[2][:, sv], rtol=1e-4, atol=1e-3)
+
+
+def test_wide_voxel_keys_and_new_stage_orders_on_card_match_cpu(cuda):
+    # the 'wide' voxel tier, ground last, the height cut and the three
+    # downsamplers: the card's run equals the CPU's with the same draws
+    soa = _scene_soa(4, 0.5)
+    soa["positions"][:, :2] *= 12.0  # 240 m: beyond the 'box' tier at 0.08 m
+    # a spinning sensor's order (by azimuth): the 4096 pre-voxel bucket
+    # ahead of the last ground stage then keeps objects too
+    order = np.argsort(np.arctan2(soa["positions"][:, 1], soa["positions"][:, 0]), kind="stable")
+    soa = {k: v[order] for k, v in soa.items()}
+    base = {**_SLICE_CFG, "roi_min": [-130.0, -130.0, -20.0], "roi_max": [130.0, 130.0, 20.0]}
+    cases = [
+        {},
+        {"remove_ground.before_voxel": False},
+        {"remove_ground.method": "height", "ground_plane": [0.0, 0.0, 1.0, 0.0]},
+        {"downsample_method": "random"},
+        {"downsample_method": "uniform"},
+        {"downsample_method": "farthest_point", "downsample.num_samples": 1500},
+    ]
+    for extra in cases:
+        cfg = {**base, **extra}
+        settings = settings_from_config(cfg)
+        assert settings.voxel_compact_keys == "wide"
+        run = build_pipeline(settings)
+        u = torch.from_numpy(_rng(5).uniform(size=(settings.num_iterations, settings.ransac_n))
+                             .astype(np.float32))
+        d = torch.from_numpy(_rng(6).uniform(size=4096).astype(np.float32))
+        outs = []
+        for dev in (cuda, torch.device("cpu")):
+            buf, meta = from_soa(soa, capacity=8192, device=dev)
+            out, plane = run(buf, params_from_config(cfg, device=dev), None, u.to(dev), d.to(dev))
+            outs.append({tuple(r) for r in np.round(to_soa(out, meta)["positions"], 5).tolist()})
+        jaccard = len(outs[0] & outs[1]) / max(len(outs[0] | outs[1]), 1)
+        assert len(outs[1]) > 100 and jaccard >= 0.99, (extra, jaccard)

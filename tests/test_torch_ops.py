@@ -25,8 +25,9 @@ from autodriver_pointcloud_preprocessor_tpu.ops import window as ref_window
 from autodriver_pointcloud_preprocessor_tpu_torch import core
 from autodriver_pointcloud_preprocessor_tpu_torch.convert import scan_from_reference
 from autodriver_pointcloud_preprocessor_tpu_torch.ops import (
-    compact, crop, dedup, finite, ground, linalg, normals, voxel, window,
+    crop, dedup, finite, ground, linalg, normals, voxel, window,
 )
+from autodriver_pointcloud_preprocessor_tpu_torch.ops.compact import compact_to, shrink_front
 
 
 def _t(a):
@@ -184,15 +185,15 @@ def test_compact_to_and_shrink_front_match_reference(rng):
     rbuf = rbuf.with_mask(jnp.asarray(rng.uniform(size=4096) < 0.5))
     pbuf = _port(rbuf)
     for ref, port in (
-        (ref_compact_to(rbuf, 2048), compact.compact_to(pbuf, 2048)),
-        (ref_shrink_front(rbuf, 1024), compact.shrink_front(pbuf, 1024)),
+        (ref_compact_to(rbuf, 2048), compact_to(pbuf, 2048)),
+        (ref_shrink_front(rbuf, 1024), shrink_front(pbuf, 1024)),
     ):
         np.testing.assert_array_equal(port.mask.numpy(), np.asarray(ref.mask))
         np.testing.assert_array_equal(port.positions.numpy(), np.asarray(ref.positions))
         for name, v in ref.attributes.items():
             np.testing.assert_array_equal(port.attributes[name].numpy(), np.asarray(v))
     with pytest.raises(ValueError):
-        compact.compact_to(pbuf, 8192)
+        compact_to(pbuf, 8192)
 
 
 # ---------------------------------------------------------- dedup ----
@@ -295,8 +296,20 @@ def test_voxel_matches_reference(rng, dedup_exact, curve_order, compact_keys, fi
 
 
 def test_voxel_rejects_unported_tiers(rng):
-    pbuf = _port(_voxel_input(rng, 500))
-    with pytest.raises(NotImplementedError):
-        voxel.voxel_downsample(pbuf, 0.25, curve_order=True, compact_keys="wide")
+    # every tier of the reference runs: 'wide' matches it; compact keys
+    # without the curve order and unknown tiers are refused
+    rbuf = _voxel_input(rng, 500)
+    pbuf = _port(rbuf)
+    kw = dict(dedup_exact=True, curve_order=True, compact_keys="wide")
+    ref = ref_voxel.voxel_downsample(rbuf, 0.25, backend="pallas_interpret", **kw)
+    port = voxel.voxel_downsample(pbuf, torch.tensor(0.25), **kw)
+    live = np.asarray(ref.mask)
+    np.testing.assert_array_equal(port.mask.numpy(), live)
+    np.testing.assert_allclose(port.positions.numpy()[:, live], np.asarray(ref.positions)[:, live],
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(port.attributes["ring"].numpy()[live],
+                                  np.asarray(ref.attributes["ring"])[live])
     with pytest.raises(ValueError):
         voxel.voxel_downsample(pbuf, 0.25, compact_keys="box")
+    with pytest.raises(ValueError):
+        voxel.voxel_downsample(pbuf, 0.25, curve_order=True, compact_keys="huge")

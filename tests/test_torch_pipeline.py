@@ -77,6 +77,17 @@ def _soa():
     }
 
 
+def _sensor_order(soa):
+    """The scene's points in a spinning sensor's firing order (by azimuth,
+    non-finite rows last): ground and objects interleave, as in a real
+    scan. In the scene's own order every ground point comes first, and a
+    pre-voxel bucket ahead of ground removal (the reference's stage order)
+    holds ground points only (ROADMAP fault 10)."""
+    pts = soa["positions"]
+    order = np.argsort(np.arctan2(pts[:, 1], pts[:, 0]), kind="stable")
+    return {k: v[order] for k, v in soa.items()}
+
+
 def _to_port(buf):
     return scan_from_reference(
         np.asarray(buf.positions), np.asarray(buf.mask),
@@ -271,11 +282,55 @@ def test_front_only_pipeline_matches_reference(pallas_interpret):
         {"remove_ground.score_subsample": 16384},
         {"remove_ground.before_voxel": False, "remove_ground.before_neighborhood": True},
         {"roi_min": [-500.0, -500.0, -20.0], "roi_max": [500.0, 500.0, 20.0]},
+        {"pallas_ok": False},
     ],
 )
-def test_unported_settings_raise(override):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.stage_functions(pipeline.settings_from_config({**CFG, **override}))
+def test_unported_settings_raise(pallas_interpret, override):
+    # the settings the port once refused now run and match the reference
+    # (ground by height, ground last or before the neighbourhood, the other
+    # downsamplers, the subsampled vote, the 'wide' voxel keys); only the
+    # reference's XLA kernel variants (pallas_ok=False) still raise
+    cfg = {**CFG, **override}
+    port_settings = pipeline.settings_from_config(cfg)
+    if "pallas_ok" in override:
+        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+            pipeline.stage_functions(dataclasses.replace(port_settings, **override))
+        return
+    settings = ref_pipeline.settings_from_config(cfg)
+    assert port_settings == dataclasses.replace(
+        pipeline.PipelineSettings(), **dataclasses.asdict(settings))
+    assert [n for n, _ in pipeline.stage_functions(port_settings)] == [
+        n for n, _ in ref_pipeline.stage_functions(settings)]
+    soa = _sensor_order(_soa())
+    rbuf, _ = ref_from_soa(soa, capacity=CAPACITY)
+    rparams = ref_pipeline.params_from_config(cfg)
+    ref_out, ref_plane = ref_pipeline.build_pipeline(settings)(rbuf, rparams, KEY)
+    # the random downsampler's draws: the reference's, at the capacity its
+    # stage sees (after the pre-voxel bucket)
+    cap = min(settings.pre_voxel_compact_capacity or CAPACITY, CAPACITY)
+    draws = torch.from_numpy(np.array(jax.random.uniform(KEY, (cap,))))
+    pbuf, _ = from_soa(soa, capacity=CAPACITY, device="cpu")
+    # the reference's own parameter arrays (ground_plane, sampling_ratio,
+    # every_k_points among them) through convert
+    pparams = params_from_reference(
+        {f.name: np.asarray(getattr(rparams, f.name)) for f in dataclasses.fields(rparams)},
+        device="cpu",
+    )
+    port_out, port_plane = pipeline.build_pipeline(port_settings)(
+        pbuf, pparams, None, _uniforms(settings), draws)
+    assert port_out.capacity == ref_out.capacity
+    if settings.ground_method == "height":
+        np.testing.assert_array_equal(port_plane.numpy(), np.asarray(ref_plane))
+    else:  # the reference's refit is NaN-poisoned on the raw scene (fault 3)
+        assert abs(float(port_plane[2])) > 0.999 and abs(float(ref_plane[2])) > 0.999
+    jaccard, normals_ok = _compare_survivors(
+        _survivors(port_out.positions.numpy(), port_out.mask.numpy(),
+                   port_out.attributes["normals"].numpy()),
+        _survivors(ref_out.positions, ref_out.mask, ref_out.attributes["normals"]),
+    )
+    assert int(port_out.mask.sum()) > 300
+    assert jaccard >= 0.99, jaccard
+    assert normals_ok >= 0.98, normals_ok
 
 
 def test_port_imports_without_jax():
@@ -289,6 +344,11 @@ def test_port_imports_without_jax():
         "import autodriver_pointcloud_preprocessor_tpu_torch.ops.outliers\n"
         "import autodriver_pointcloud_preprocessor_tpu_torch.ops.radius_outliers\n"
         "import autodriver_pointcloud_preprocessor_tpu_torch.ops.normals\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.ops.downsample\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.ops.height_ground\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.ops.voxel\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.ops.compact\n"
+        "import chip_smoke\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(m.startswith('autodriver_pointcloud_preprocessor_tpu.')"
         " or m == 'autodriver_pointcloud_preprocessor_tpu' for m in sys.modules)\n"

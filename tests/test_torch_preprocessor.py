@@ -8,6 +8,8 @@ scenes are tests/test_e2e_quality.py's density-matched scene with 60%,
 neighbourhood bucket and two overflow it. The reference runs its Pallas
 kernels in interpret mode, as its own tests do.
 """
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -247,10 +249,15 @@ def test_update_config_rolls_back_like_the_reference():
                 eng.update_config(bad)
         assert engine.config == ref_engine.config == CFG
         assert engine.settings == pipeline.settings_from_config(CFG)
-    # a stage the port lacks is refused at reconfigure, and rolled back
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.update_config({"remove_ground.method": "height"})
-    assert engine.config == CFG and engine.settings.ground_method == "ransac"
+    # the height cut: both engines take it, with equal settings
+    for eng in (engine, ref_engine):
+        eng.update_config({"remove_ground.method": "height"})
+    assert engine.config == ref_engine.config
+    assert engine.settings.ground_method == "height"
+    assert engine.settings == pipeline.PipelineSettings(
+        **dataclasses.asdict(ref_engine.settings))
+    np.testing.assert_array_equal(engine.params.ground_plane.numpy(),
+                                  np.asarray(ref_engine.params.ground_plane))
     engine.update_config({"voxel_size": 0.1})
     ref_engine.update_config({"voxel_size": 0.1})
     assert engine.config == ref_engine.config

@@ -26,8 +26,9 @@ from autodriver_pointcloud_preprocessor_tpu.ops import radius_outliers as ref_ra
 from autodriver_pointcloud_preprocessor_tpu.ops import window as ref_window
 from autodriver_pointcloud_preprocessor_tpu_torch import core
 from autodriver_pointcloud_preprocessor_tpu_torch.ops import (
-    compact, knn, normals, outliers, radius_outliers, window,
+    knn, normals, outliers, radius_outliers, window,
 )
+from autodriver_pointcloud_preprocessor_tpu_torch.ops.compact import shrink_front, subsample_to
 
 _N = 4096
 _INTERP = "pallas_interpret"
@@ -109,7 +110,7 @@ def test_subsample_to_bit_exact_against_reference(cap):
     ref = ref_subsample_to(
         RefScanBuffer(positions=jnp.asarray(pts), mask=jnp.asarray(mask),
                       attributes={k: jnp.asarray(v) for k, v in attrs.items()}), cap)
-    port = compact.subsample_to(
+    port = subsample_to(
         core.ScanBuffer(positions=_t(pts), mask=_t(mask),
                         attributes={k: _t(v) for k, v in attrs.items()}), cap)
     live = np.asarray(ref.mask)
@@ -124,10 +125,10 @@ def test_subsample_to_bit_exact_against_reference(cap):
                                       np.asarray(ref.attributes[k])[..., live])
     # a batch: each scan subsamples on its own, as it does alone
     pts2, mask2 = _cloud(3)
-    both = compact.subsample_to(
+    both = subsample_to(
         core.stack_buffers([_port_buf(pts, mask), _port_buf(pts2, mask2)]), cap)
     for got, (p, m) in zip(core.unstack_buffer(both), ((pts, mask), (pts2, mask2))):
-        alone = compact.subsample_to(_port_buf(p, m), cap)
+        alone = subsample_to(_port_buf(p, m), cap)
         assert torch.equal(got.mask, alone.mask)
         assert torch.equal(got.positions.view(torch.int32), alone.positions.view(torch.int32))
 
@@ -135,7 +136,7 @@ def test_subsample_to_bit_exact_against_reference(cap):
 def test_shrink_front_keeps_each_scans_prefix():
     pts, mask = _cloud(4)
     both = core.stack_buffers([_port_buf(pts, mask), _port_buf(pts[:, ::-1].copy(), mask[::-1].copy())])
-    out = compact.shrink_front(both, 1024)
+    out = shrink_front(both, 1024)
     assert out.positions.shape == (2, 3, 1024) and out.mask.shape == (2, 1024)
     ref = ref_shrink_front(_ref_buf(pts, mask), 1024)
     np.testing.assert_array_equal(out.mask[0].numpy(), np.asarray(ref.mask))
