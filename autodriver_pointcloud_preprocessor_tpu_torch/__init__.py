@@ -6,13 +6,17 @@ The same LiDAR preprocessing pipeline as the JAX package
 eagerly in PyTorch. The reference's Pallas TPU kernels are replaced by
 hand-written CUDA C++ kernels for Hopper (``csrc/``), each with a plain
 PyTorch version of the same contract beside it that CPU tensors use.
+``io`` carries the data path around the pipeline: PCAP and UDP packet
+sources, PCD/PLY/KITTI files, the compressed-cloud codec, and the
+``StreamingEngine`` that decodes packets, runs the pipeline and quantizes
+on the device; its host loops are C++ sidecars (``native/``).
 
 This package never imports ``jax``.
 """
 
 __version__ = "0.1.0"
 
-from . import convert, core, models, ops
+from . import convert, core, io, models, ops, runtime
 from .core import ScanBuffer
 
-__all__ = ["convert", "core", "models", "ops", "ScanBuffer", "__version__"]
+__all__ = ["convert", "core", "io", "models", "ops", "runtime", "ScanBuffer", "__version__"]

@@ -83,12 +83,41 @@ jaccard >= 0.99):
 22. (o) Production with the height cut (1/1/2).
 23. p50 and p90 ms a scan of every path.
 
+The streaming data path (``io.streaming.StreamingEngine``: packets ->
+decode on the card -> pipeline -> quantizer on the card -> host varint +
+DEFLATE -> APCZ blobs), on captures written by the script itself (the
+payload parser is the C++ sidecar, built with g++ at first use):
+
+24. (p) The packet decode on the card against the CPU, on an HDL-32E
+    revolution at 192 packets (73,728 slots) and a VLP-16 one at 128
+    (49,152): mask, ring, intensity, time and distance bit for bit,
+    positions and azimuth within 1e-4; the quantizer on the production
+    output of the HDL-32E revolution: one K1 launch, count equal, box
+    within 1e-6 relative, rows within one quantum of the CPU's; the decode's
+    and the quantizer's launches (torch.profiler) and times, and K1's at
+    the quantizer's call against its plain version and bound.
+25. (q) ``bench_suite.py`` config 5: a VLP-16 capture of 1,500 packets (20
+    revolutions, tests/test_pcap_compressor.py's ``_write_pcap``),
+    ``packet_bucket=128``, ``{"voxel_size": 0.05, "estimate_normals":
+    False}``: ``replay_pcap`` single and ``batch=20`` (launches 1/2/0 a
+    revolution or batch, the batch's blobs equal the single replay's), ms a
+    revolution p50 and p90, real-time factor at 10 Hz, compression against
+    the packet bytes; the CPU's blobs: counts equal, jaccard >= 0.99 on the
+    quantization grid.
+26. (r) ``PRODUCTION_128K_CONFIG`` on an HDL-32E capture of 3 revolutions
+    (181 packets each, ``packet_bucket=192``, tools/make_hdl32_fixture.py's
+    scene, strongest return): ``replay_pcap`` (2/2/2 a revolution) and a
+    ``process_scan_batch`` of 8 (2/2/2, each revolution equal to its lone
+    run with the same draws), ms a revolution, real-time factor, and one
+    revolution on the CPU with the same draws (jaccard >= 0.99).
+
 With ``--profile DIR`` it also traces, with torch.profiler, 5 single scans
 and one vmapped batch of the production preset and of config 2, 5
-QUALITY scans and 5 scans of each path of phases 17-22 (3 of config 6,
-1 of FPS and of config 7 in scene order), and writes the time per
-operator (device and host) to ``DIR/profile.txt``, each table headed by
-its device-busy share, launches and syncs.
+QUALITY scans, 5 scans of each path of phases 17-22 (3 of config 6, 1 of
+FPS and of config 7 in scene order), and (27, phase (s)) 5 revolutions of
+config 5's replay and of phase (r), and (r)'s batch of 8, and writes the
+time per operator (device and host) to ``DIR/profile.txt``, each table
+headed by its device-busy share, launches and syncs.
 
 Prints the card, the numbers, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing any
@@ -98,8 +127,10 @@ of JAX.
 from __future__ import annotations
 
 import json
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -893,6 +924,396 @@ def surface_slice(dev, production_cfg):
             "profile": profile}
 
 
+# ---- synthetic Velodyne captures (packets, pcap files) --------------------
+
+#: bench_suite.py config 5 (:230-300): the streaming engine's settings
+CONFIG5 = {"voxel_size": 0.05, "estimate_normals": False}
+CONFIG5_PACKETS, CONFIG5_BUCKET = 1500, 128
+#: the HDL-32E capture of phase (r): single return, 10 Hz, 181 packets
+#: (2,172 firings of 32 lasers) a revolution
+HDL32_PER_REV, HDL32_REVS, HDL32_BUCKET = 181, 3, 192
+#: K1/K2/K3 launches a revolution (or a batch) of the streaming paths: the
+#: pipeline's own and the quantizer's K1
+STREAM_LAUNCHES = {"config5": (1, 2, 0), "production": (2, 2, 2)}
+HDL32_ELEVATIONS = np.array(
+    [-30.67, -9.33, -29.33, -8.0, -28.0, -6.67, -26.67, -5.33, -25.33, -4.0, -24.0,
+     -2.67, -22.67, -1.33, -21.33, 0.0, -20.0, 1.33, -18.67, 2.67, -17.33, 4.0, -16.0,
+     5.33, -14.67, 6.67, -13.33, 8.0, -12.0, 9.33, -10.67, 10.67], dtype=np.float32)
+
+
+def make_payloads(az_cdeg, ticks, refl, factory: int = 0x2237) -> np.ndarray:
+    """(P, 1206) uint8 Velodyne payloads from block azimuths (P, 12) in
+    hundredths of a degree, range ticks (P, 12, 32) of 2 mm and
+    reflectivities (P, 12, 32)."""
+    p = az_cdeg.shape[0]
+    out = np.zeros((p, 1206), np.uint8)
+    blocks = out[:, :1200].reshape(p, 12, 100)
+    blocks[:, :, 0], blocks[:, :, 1] = 0xFF, 0xEE
+    az = np.asarray(az_cdeg, np.int64) % 36000
+    blocks[:, :, 2], blocks[:, :, 3] = az & 0xFF, az >> 8
+    ch = blocks[:, :, 4:100].reshape(p, 12, 32, 3)
+    t = np.clip(np.asarray(ticks, np.int64), 0, 65535)
+    ch[..., 0], ch[..., 1], ch[..., 2] = t & 0xFF, t >> 8, np.asarray(refl) & 0xFF
+    out[:, 1204], out[:, 1205] = factory & 0xFF, factory >> 8
+    return out
+
+
+def write_pcap(path: str, payloads: np.ndarray, stamps_us: np.ndarray) -> None:
+    """A pcap file of Ethernet/IPv4/UDP frames to port 2368, one a payload,
+    stamped at ``stamps_us`` (integer microseconds)."""
+    eth = b"\x00" * 6 + b"\x11" * 6 + struct.pack(">H", 0x0800)
+    udp_len = 8 + payloads.shape[1]
+    ip = struct.pack(">BBHHHBBH4s4s", 0x45, 0, 20 + udp_len, 0, 0, 64, 17, 0,
+                     b"\xc0\xa8\x01\x01", b"\xc0\xa8\x01\x02")
+    head = eth + ip + struct.pack(">HHHH", 51000, 2368, udp_len, 0)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<IHHiIII", 0xA1B2C3D4, 2, 4, 0, 0, 65535, 1))
+        for payload, us in zip(payloads, stamps_us):
+            frame = head + payload.tobytes()
+            f.write(struct.pack("<IIII", int(us) // 10**6, int(us) % 10**6, len(frame), len(frame)))
+            f.write(frame)
+
+
+def vlp16_ring_capture(num_packets: int, dist_m: float = 10.0):
+    """tests/test_pcap_compressor.py's ``_write_pcap`` capture, as
+    (payloads, stamps in us): a VLP-16 sweeping 4.8 degrees a packet (75
+    packets a revolution), every return at ``dist_m`` with reflectivity 42."""
+    i = np.arange(num_packets)
+    az = (i[:, None] * 480 + np.arange(12) * 40) % 36000
+    ticks = np.full((num_packets, 12, 32), int(dist_m / 0.002))
+    stamps = (1000 + i // 10) * 10**6 + (i % 10) * 1000
+    return make_payloads(az, ticks, np.full_like(ticks, 42)), stamps
+
+
+def random_capture(model: str, packets: int, seed: int = 1):
+    """(payloads, stamps in us) of ``packets`` packets with ranges of
+    0.4-120 m, 5% empty returns, random reflectivities, and azimuths that
+    start at 350 degrees and wrap (the parity tests' capture)."""
+    rng = np.random.default_rng(seed)
+    step = 40 if model == "VLP16" else 16
+    az = 35000 + (np.arange(packets)[:, None] * 12 + np.arange(12)) * step
+    ticks = rng.integers(200, 60000, (packets, 12, 32))
+    ticks[rng.random(ticks.shape) < 0.05] = 0
+    payloads = make_payloads(az, ticks, rng.integers(0, 256, ticks.shape))
+    return payloads, 1_000_000_000 + np.arange(packets) * 1327
+
+
+def hdl32_capture(revs: int = HDL32_REVS, per_rev: int = HDL32_PER_REV, seed: int = 11):
+    """An HDL-32E capture at 10 Hz, single (strongest) return, as
+    (payloads, stamps in us): tools/make_hdl32_fixture.py's scene (ground 2 m
+    below the sensor out to 70 m, three walls, two boxes that move between
+    revolutions, a porous canopy in front of what lies behind it) at 12
+    firings a packet, ``per_rev`` packets a revolution."""
+    rng = np.random.default_rng(seed)
+    firings = per_rev * 12
+    k = np.arange(firings)
+    az_cdeg = np.rint(k * 36000.0 / firings).astype(np.int64) % 36000
+    az = (az_cdeg / 100.0)[None, :, None]  # (1, F, 1) degrees
+    el = np.deg2rad(HDL32_ELEVATIONS.astype(np.float64))[None, None, :]  # (1, 1, 32)
+    shape = (revs, firings, 32)
+    cos_el, sin_el = np.cos(el), np.sin(el)
+    ground = np.where(el < -1e-4, 2.0 / np.maximum(-sin_el, 1e-9), 0.0)
+    solid = np.broadcast_to(np.where(ground <= 70.0, ground, 0.0), shape).copy()
+    rev = np.arange(revs)[:, None, None]
+    segs = [(30.0, 80.0, 10.0, 3.0), (120.0, 150.0, 6.0, 2.0), (200.0, 290.0, 18.0, 4.0)]
+    for az_c, dps, d, hw, h in ((100.0, 12.0, 7.0, 4.0, 1.6), (310.0, -8.0, 12.0, 6.0, 2.2)):
+        c = (az_c + dps * rev) % 360.0
+        segs.append((c - hw, c + hw, d, h))
+    for a0, a1, d, h in segs:
+        inside = (az - a0) % 360.0 <= (a1 - a0) % 360.0
+        r = d / cos_el
+        z = r * sin_el
+        hit = inside & (z >= -2.0) & (z <= -2.0 + h) & (r <= 70.0)
+        r = np.broadcast_to(r, shape)
+        solid = np.where(hit & ((solid == 0.0) | (r < solid)), r, solid)
+    solid = np.where(solid > 0.0, solid + rng.normal(0.0, 0.01, shape), 0.0)
+    r = np.broadcast_to(9.0 / cos_el, shape)
+    zc = r * sin_el + 2.0
+    canopy_hit = ((az >= 160.0) & (az <= 190.0) & (zc >= 0.5) & (zc <= 3.5) & (r <= 70.0)
+                  & (rng.uniform(size=shape) <= 0.55))
+    canopy = np.where(canopy_hit, r + rng.normal(0.0, 0.05, shape), 0.0)
+    strongest = np.where((canopy > 0.0) & ((solid == 0.0) | (canopy < solid)), canopy, solid)
+    ticks = np.rint(strongest / 0.002).astype(np.int64).reshape(revs * per_rev, 12, 32)
+    refl = np.broadcast_to((60 + 40 * np.sin(np.deg2rad(az))).astype(np.int64), shape)
+    payloads = make_payloads(np.tile(az_cdeg, revs).reshape(-1, 12), ticks,
+                             refl.reshape(revs * per_rev, 12, 32), factory=0x2137)
+    i = np.arange(revs * per_rev)
+    stamps = 2000 * 10**6 + (i // per_rev) * 100_000 + (i % per_rev) * 552
+    return payloads, stamps
+
+
+def revolutions(payloads: np.ndarray, stamps: np.ndarray):
+    """[(payloads, stamps)] of each revolution, split where the block-0
+    azimuth wraps, as ``StreamingEngine.replay_pcap`` splits them."""
+    az0 = payloads[:, 2].astype(np.int32) | (payloads[:, 3].astype(np.int32) << 8)
+    bounds = [0, *(np.flatnonzero(np.diff(az0) < -18000) + 1).tolist(), payloads.shape[0]]
+    return [(payloads[a:b], stamps[a:b]) for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+
+
+def grid_jaccard(blob, other, decompress) -> tuple:
+    """(jaccard of two blobs' survivors on ``blob``'s quantization grid,
+    largest grid step between matched survivors, survivor counts, whether
+    the intensities are equal)."""
+    a, b = decompress(blob), decompress(other)
+    lo_step = np.frombuffer(blob[11:59], np.float64)
+    qa = np.rint((a["positions"] - lo_step[:3]) / lo_step[3:]).astype(np.int64)
+    qb = np.rint((b["positions"] - lo_step[:3]) / lo_step[3:]).astype(np.int64)
+    sa, sb = set(map(tuple, qa.tolist())), set(map(tuple, qb.tolist()))
+    steps = int(np.abs(qa - qb).max(initial=0)) if qa.shape == qb.shape else -1
+    same_i = qa.shape == qb.shape and np.array_equal(a.get("intensity"), b.get("intensity"))
+    return same_set_jaccard(sa, sb), steps, (len(qa), len(qb)), same_i
+
+
+def streaming_slice(dev, production_cfg):
+    """Phases 24-27: the streaming data path (see the module docstring).
+    Returns each path's launch counts and timings, the profile runs, and
+    K1's numbers at the quantizer's call."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.io.compressor import (
+        decompress_soa, device_quantizer,
+    )
+    from autodriver_pointcloud_preprocessor_tpu_torch.io.pcap import _read_payloads
+    from autodriver_pointcloud_preprocessor_tpu_torch.io.streaming import (
+        StreamingEngine, _split_packet_fields, decode_fields,
+    )
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import (
+        build_pipeline, params_from_config, settings_from_config,
+    )
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops import _build
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops.segmean import (
+        compact_rows, compact_rows_plain,
+    )
+
+    launches, timings, profile, ops = {}, {}, [], {}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def counts():
+        return tuple(_build.LAUNCHES[k] for k in KERNELS)
+
+    def traced_launches(fn) -> int:
+        """cudaLaunchKernel calls of one ``fn()`` (torch.profiler)."""
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
+
+    def fields_of(payloads, stamps, pb):
+        p = payloads.shape[0]
+        fields = np.zeros((1176, pb), np.uint8)
+        fields[:, :p] = _split_packet_fields(payloads)
+        stamp_off = np.zeros(pb, np.float32)
+        stamp_off[:p] = (stamps - stamps.min()).astype(np.float32)
+        return torch.from_numpy(fields), torch.from_numpy(stamp_off), torch.tensor(p, dtype=torch.int32)
+
+    def decode_on(tensors, device, model):
+        f, so, n = (t.to(device) for t in tensors)
+        return decode_fields(f, so, n, 0.4, 130.0, model)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- (p) decode and quantizer, card vs CPU -------------------------
+        t0 = time.perf_counter()
+        hdl_path, vlp_path = f"{tmp}/hdl32.pcap", f"{tmp}/vlp16.pcap"
+        write_pcap(hdl_path, *hdl32_capture())
+        write_pcap(vlp_path, *vlp16_ring_capture(CONFIG5_PACKETS))
+        hdl_revs = revolutions(*_read_payloads(hdl_path))  # through the sidecar
+        vlp_revs = revolutions(*_read_payloads(vlp_path))
+        check([len(p) for p, _ in hdl_revs] == [HDL32_PER_REV] * HDL32_REVS,
+              f"(p) HDL-32E capture: revolutions of {[len(p) for p, _ in hdl_revs]} packets")
+        check(len(vlp_revs) == 20, f"(p) VLP-16 capture: {len(vlp_revs)} revolutions, not 20")
+        for tag, model, rev, pb in (("HDL-32E", "HDL32E", hdl_revs[0], HDL32_BUCKET),
+                                    ("VLP-16", "VLP16", vlp_revs[0], CONFIG5_BUCKET)):
+            tensors = fields_of(*rev, pb)
+            card, cpu = decode_on(tensors, dev, model), decode_on(tensors, "cpu", model)
+            check(torch.equal(card.mask.cpu(), cpu.mask), f"(p) {tag} decode: masks differ")
+            for k in ("intensity", "ring", "time", "distance"):
+                check(torch.equal(bits(card.attributes[k]), bits(cpu.attributes[k])),
+                      f"(p) {tag} decode: {k} differs from the CPU's")
+            az_err = float((card.attributes["azimuth"].cpu() - cpu.attributes["azimuth"]).abs().max())
+            pos_err = float((card.positions.cpu() - cpu.positions)[:, cpu.mask].abs().max())
+            check(az_err <= 1e-4 and pos_err <= 1e-4,
+                  f"(p) {tag} decode: azimuth {az_err:.3e} deg, positions {pos_err:.3e} m from the CPU's")
+            f_d, so_d, n_d = (t.to(dev) for t in tensors)
+            decode_ms = event_ms(lambda: decode_fields(f_d, so_d, n_d, 0.4, 130.0, model), 20)
+            ops[f"decode_{model}"] = {
+                "launches": traced_launches(lambda: decode_fields(f_d, so_d, n_d, 0.4, 130.0, model)),
+                "ms": decode_ms, "slots": card.capacity, "live": int(cpu.mask.sum())}
+            print(f"[chip_smoke] (p) {tag} decode at {card.capacity} slots ({int(cpu.mask.sum())} live): "
+                  f"mask, ring, intensity, time, distance equal to the CPU's bit for bit; azimuth "
+                  f"{az_err:.3e} deg, positions {pos_err:.3e} m; {decode_ms:.4f} ms a call (CUDA "
+                  f"events), {ops[f'decode_{model}']['launches']} cudaLaunchKernel")
+        # the quantizer on the production output of the HDL-32E revolution
+        settings = settings_from_config(production_cfg)
+        draws = torch.from_numpy(np.random.default_rng(12).uniform(
+            size=(BATCH, settings.num_iterations, settings.ransac_n)).astype(np.float32))
+        out, _ = build_pipeline(settings)(decode_on(fields_of(*hdl_revs[0], HDL32_BUCKET), dev, "HDL32E"),
+                                          params_from_config(production_cfg, device=dev), None,
+                                          draws[0].to(dev))
+        quantize = device_quantizer(14)
+        _build.reset_launches()
+        packed, meta = quantize(out, 1.0)
+        torch.cuda.synchronize()
+        check(counts() == (1, 0, 0), f"(p) quantizer launches {counts()}, expected (1, 0, 0)")
+        out_cpu = type(out)(out.positions.cpu(), out.mask.cpu(), {k: v.cpu() for k, v in out.attributes.items()})
+        packed_cpu, meta_cpu = quantize(out_cpu, 1.0)
+        meta, packed = meta.cpu(), packed.cpu()
+        n_live = int(meta_cpu[0])
+        steps = (packed[:3, :n_live].int() - packed_cpu[:3, :n_live].int()).abs()
+        check(float(meta[0]) == float(meta_cpu[0]) and n_live > 0, f"(p) quantizer count {meta[0]} vs {meta_cpu[0]}")
+        rel = float(((meta[1:] - meta_cpu[1:]).abs() / meta_cpu[1:].abs()).max())
+        check(rel <= 1e-6, f"(p) quantizer lo/step differ by {rel:.3e} relative")
+        check(int(steps.max()) <= 1 and float((steps > 0).float().mean()) <= 1e-3
+              and torch.equal(packed[3, :n_live], packed_cpu[3, :n_live]),
+              f"(p) quantizer rows: {int((steps > 0).sum())} coordinates differ, by up to {int(steps.max())}")
+        q_ms = event_ms(lambda: quantize(out, 1.0), 20)
+        ops["quantize"] = {"launches": traced_launches(lambda: quantize(out, 1.0)), "ms": q_ms,
+                           "slots": out.capacity, "live": n_live}
+        # K1 at the quantizer's call: 4 rows (positions, intensity) of the
+        # production output, compacted in place
+        inten = out.attributes["intensity"]
+        k1_out, k1_mask = compact_rows([out.positions, inten], out.mask, out.capacity)
+        want, want_mask = compact_rows_plain([out.positions.cpu(), inten.cpu()], out.mask.cpu(), out.capacity)
+        check(all(torch.equal(bits(a), bits(b)) for a, b in zip(k1_out, want))
+              and torch.equal(k1_mask.cpu(), want_mask), "(p) K1 at the quantizer's call differs from plain")
+        rows4 = torch.cat([out.positions, inten[None]]).contiguous()
+        km, pm = interleaved_ms(lambda: compact_rows([out.positions, inten], out.mask, out.capacity),
+                                lambda: compact_rows_plain([out.positions, inten], out.mask, out.capacity))
+        lib = event_ms(lambda: rows4[:, out.mask], 20)
+        k1_quant = (km, pm, lib, *bound(*k1_work(rows4, out.mask, out.capacity)),
+                    f"4 x {out.capacity} -> {out.capacity} (positions, intensity)")
+        print(f"[chip_smoke] (p) quantizer on the production output ({out.capacity} slots, {n_live} live): "
+              f"1 K1 launch; vs the CPU: count equal, lo/step {rel:.3e} relative, {int((steps > 0).sum())} "
+              f"coordinates one quantum apart; {q_ms:.4f} ms a call, {ops['quantize']['launches']} "
+              f"cudaLaunchKernel. K1 there: kernel {km:.4f} ms, plain {pm:.4f}, library {lib:.4f}, "
+              f"bound {k1_quant[3]:.4f} ({k1_quant[4]}) ({time.perf_counter() - t0:.1f} s)")
+
+        # ---- (q) bench_suite.py config 5 through StreamingEngine -----------
+        t0 = time.perf_counter()
+        engine5 = StreamingEngine(CONFIG5, packet_bucket=CONFIG5_BUCKET)
+        check(engine5.device == dev, f"StreamingEngine defaults to {engine5.device}, not {dev}")
+
+        def replay(engine, path, batch=1):
+            """(blobs, ms between consecutive blobs, wall s) of one replay."""
+            stamps_s, blobs = [time.perf_counter()], []
+            for blob in engine.replay_pcap(path, batch=batch):
+                blobs.append(blob)
+                stamps_s.append(time.perf_counter())
+            return blobs, np.diff(stamps_s) * 1e3, stamps_s[-1] - stamps_s[0]
+
+        replay(engine5, vlp_path)  # warm-up
+        for batch, tag in ((1, "streaming_config5"), (20, "streaming_config5_batch20")):
+            _build.reset_launches()
+            blobs, _, _ = replay(engine5, vlp_path, batch)
+            torch.cuda.synchronize()
+            per = 20 if batch == 1 else 1
+            # the pipeline's 0/2/0 (the decoded buffer's 9 voxel channels
+            # take two K2 launches of 8 rows at most) and the quantizer's K1
+            want = tuple(per * c for c in STREAM_LAUNCHES["config5"])
+            check(counts() == want, f"(q) {tag}: launches {counts()}, expected {want}")
+            launches[tag] = dict(zip(KERNELS, counts()))
+            if batch == 1:
+                single_blobs = blobs
+            else:
+                check(blobs == single_blobs, "(q) batch=20 blobs differ from the single replay's")
+            walls, per_rev = [], []
+            for _ in range(3 if batch == 1 else 5):
+                b, gaps, wall = replay(engine5, vlp_path, batch)
+                walls.append(wall)
+                per_rev.extend(gaps if batch == 1 else [wall * 1e3 / len(b)])
+            p50, p90 = float(np.median(per_rev)), float(np.percentile(per_rev, 90))
+            rtf = len(blobs) / 10.0 / float(np.median(walls))
+            timings[tag] = {"p50_ms": p50, "p90_ms": p90, "realtime_10hz": rtf, "revolutions": len(blobs)}
+            print(f"[chip_smoke] (q) config 5 replay batch={batch}: {len(blobs)} revolutions, launches "
+                  f"{json.dumps(launches[tag])}; ms a revolution p50 {p50:.3f}, p90 {p90:.3f} (host clock, "
+                  f"{'between blobs' if batch == 1 else 'replay wall / revolutions'}); {rtf:.1f}x real time "
+                  f"at 10 Hz")
+        raw_bytes = sum(p.nbytes for p, _ in vlp_revs)
+        ratio = raw_bytes / sum(len(b) for b in single_blobs)
+        t1 = time.perf_counter()
+        cpu_blobs = list(StreamingEngine(CONFIG5, packet_bucket=CONFIG5_BUCKET, device="cpu")
+                         .replay_pcap(vlp_path))
+        check(len(cpu_blobs) == len(single_blobs), f"(q) {len(cpu_blobs)} CPU blobs vs {len(single_blobs)}")
+        worst = 1.0
+        for i, (g, c) in enumerate(zip(single_blobs, cpu_blobs)):
+            j, steps, sizes, same_i = grid_jaccard(g, c, decompress_soa)
+            check(sizes[0] == sizes[1] and 0 < sizes[0] and j >= 0.99 and steps <= 1 and same_i,
+                  f"(q) revolution {i}: card vs CPU survivors {sizes}, jaccard {j:.5f}, {steps} steps")
+            worst = min(worst, j)
+        timings["streaming_config5"]["compression_ratio"] = ratio
+        print(f"[chip_smoke] (q) compression {ratio:.3f}x against {raw_bytes} packet bytes; card vs CPU "
+              f"(CPU replay {time.perf_counter() - t1:.1f} s): counts equal, jaccard >= {worst:.5f} on "
+              f"the grid ({time.perf_counter() - t0:.1f} s)")
+        vlp_5 = vlp_revs[:5]
+        profile.append(("streaming config 5: 5 revolutions",
+                        lambda: [engine5.process_scan_packets(*r) for r in vlp_5]))
+
+        # ---- (r) the production preset on the HDL-32E capture --------------
+        t0 = time.perf_counter()
+        engine_r = StreamingEngine(production_cfg, model="HDL32E", packet_bucket=HDL32_BUCKET)
+        replay(engine_r, hdl_path)  # warm-up
+        _build.reset_launches()
+        blobs_r, _, _ = replay(engine_r, hdl_path)
+        torch.cuda.synchronize()
+        want = tuple(HDL32_REVS * c for c in STREAM_LAUNCHES["production"])
+        check(counts() == want, f"(r) production replay: launches {counts()}, expected {want}")
+        launches["streaming_production_hdl32"] = dict(zip(KERNELS, counts()))
+        for i, b in enumerate(blobs_r):
+            soa = decompress_soa(b)
+            n = soa["positions"].shape[0]
+            check(1000 < n < 65536 and bool(np.isfinite(soa["positions"]).all()),
+                  f"(r) revolution {i}: {n} survivors")
+        per_rev, walls = [], []
+        for _ in range(5):
+            _, gaps, wall = replay(engine_r, hdl_path)
+            per_rev.extend(gaps)
+            walls.append(wall)
+        p50, p90 = float(np.median(per_rev)), float(np.percentile(per_rev, 90))
+        timings["streaming_production_hdl32"] = {
+            "p50_ms": p50, "p90_ms": p90, "realtime_10hz": HDL32_REVS / 10.0 / float(np.median(walls)),
+            "revolutions": HDL32_REVS}
+        # a batch of 8 revolutions (the capture's 3, cycled), each with its draws
+        scans8 = [hdl_revs[i % HDL32_REVS] for i in range(BATCH)]
+        draws_d = draws.to(dev)
+        engine_r.process_scan_batch(scans8, ground_uniforms=draws_d)  # warm-up
+        _build.reset_launches()
+        batch_blobs = engine_r.process_scan_batch(scans8, ground_uniforms=draws_d)
+        torch.cuda.synchronize()
+        check(counts() == STREAM_LAUNCHES["production"],
+              f"(r) process_scan_batch of {BATCH}: launches {counts()}, expected {STREAM_LAUNCHES['production']}")
+        launches["streaming_production_hdl32_batch8"] = dict(zip(KERNELS, counts()))
+        for i, scan in enumerate(scans8):
+            alone = engine_r.process_scan_packets(*scan, ground_uniforms=draws_d[i])
+            check(alone == batch_blobs[i], f"(r) batch of {BATCH}: revolution {i} differs from its lone run")
+        batch_ms = []
+        for _ in range(5):
+            w0 = time.perf_counter()
+            engine_r.process_scan_batch(scans8, ground_uniforms=draws_d)
+            batch_ms.append((time.perf_counter() - w0) * 1e3 / BATCH)
+        timings["streaming_production_hdl32_batch8"] = {
+            "p50_ms": float(np.median(batch_ms)), "p90_ms": float(np.percentile(batch_ms, 90)),
+            "realtime_10hz": 100.0 / float(np.median(batch_ms)), "revolutions": BATCH}
+        t1 = time.perf_counter()
+        cpu_engine = StreamingEngine(production_cfg, model="HDL32E", packet_bucket=HDL32_BUCKET, device="cpu")
+        j, steps, sizes, same_i = grid_jaccard(
+            batch_blobs[0], cpu_engine.process_scan_packets(*hdl_revs[0], ground_uniforms=draws[0]),
+            decompress_soa)
+        check(j >= 0.99, f"(r) card vs CPU: survivors {sizes}, jaccard {j:.5f}")
+        print(f"[chip_smoke] (r) production on HDL-32E ({HDL32_PER_REV} packets, {HDL32_BUCKET * 384} slots "
+              f"a revolution): launches {json.dumps(launches['streaming_production_hdl32'])} in "
+              f"{HDL32_REVS} revolutions ({STREAM_LAUNCHES['production']} each), {json.dumps(launches['streaming_production_hdl32_batch8'])} "
+              f"a batch of {BATCH}, every batched revolution equal to its lone run; ms a revolution p50 "
+              f"{p50:.3f}, p90 {p90:.3f} (host clock, between blobs), "
+              f"{timings['streaming_production_hdl32']['realtime_10hz']:.1f}x real time; batch of {BATCH} "
+              f"{timings['streaming_production_hdl32_batch8']['p50_ms']:.3f} ms a revolution; card vs CPU "
+              f"survivors {sizes}, jaccard {j:.5f} (CPU {time.perf_counter() - t1:.1f} s) "
+              f"({time.perf_counter() - t0:.1f} s)")
+        hdl_5 = [hdl_revs[i % HDL32_REVS] for i in range(5)]
+        profile.append(("streaming production HDL-32E: 5 revolutions",
+                        lambda: [engine_r.process_scan_packets(*r) for r in hdl_5]))
+        profile.append((f"streaming production HDL-32E: 1 batch of {BATCH}",
+                        lambda: engine_r.process_scan_batch(scans8, ground_uniforms=draws_d)))
+    return {"launches": launches, "timings": timings, "profile": profile, "ops": ops,
+            "k1_quantizer": k1_quant}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
@@ -1274,6 +1695,9 @@ def main() -> None:
     # ---- the downsamplers and the height cut ---------------------------
     slice4 = surface_slice(dev, cfg)
 
+    # ---- the streaming data path: packets in, compressed clouds out ------
+    slice5 = streaming_slice(dev, cfg)
+
     if "--profile" in sys.argv:
         def single():
             for _ in range(5):
@@ -1284,7 +1708,7 @@ def main() -> None:
             [("production: 5 single scans", single),
              (f"production: 1 vmapped batch of {BATCH}",
               lambda: engine.process_batch(bufs, ground_uniforms=batch_draws)),
-             *slice3["profile"], *slice4["profile"]],
+             *slice3["profile"], *slice4["profile"], *slice5["profile"]],
             dev, sys.argv[sys.argv.index("--profile") + 1],
         )
 
@@ -1294,7 +1718,7 @@ def main() -> None:
     # config 2's shapes ride beside
     paths = {"production_single": single_launches,
              **{f"production_{m}": v for m, v in batch_launches.items()},
-             **slice3["launches"], **slice4["launches"]}
+             **slice3["launches"], **slice4["launches"], **slice5["launches"]}
     for name, counts in paths.items():
         # config 3 (RANSAC alone) runs no kernel; drive() checked its zeros
         check(name == "config3" or any(counts.values()), f"path {name} launched no kernel")
@@ -1315,6 +1739,9 @@ def main() -> None:
         if k == "masked_compact":
             entry["pre_compact_stage_ms"] = batch_t["pre_compact"]
             entry["single_scan"]["pre_compact_stage_ms"] = single_t["pre_compact"]
+            qkm, qpm, qlib, qbms, qby, qshapes = slice5["k1_quantizer"]
+            entry["quantizer"] = {"launches": 1, "ms": qkm, "plain_ms": qpm, "bound_ms": qbms,
+                                  "bound_by": qby, "library_ms": qlib, "shapes": qshapes}
         ckm, cpm, clib, cbms, cby = slice4["k_config6"][k]
         entry["config6"] = {"launches": slice4["launches"]["config6"][k],
                             "max_abs_err": slice4["err_config6"][k], "ms": ckm, "plain_ms": cpm,
@@ -1326,6 +1753,8 @@ def main() -> None:
                                     max_abs_err=slice3["k3_config2_max_abs_err"])
         kernels.append(entry)
     print(f"[chip_smoke] configuration surface ms/scan: {json.dumps(slice4['timings'])}")
+    print(f"[chip_smoke] streaming ms/revolution: {json.dumps(slice5['timings'])}")
+    print(f"[chip_smoke] streaming decode and quantizer ops: {json.dumps(slice5['ops'])}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

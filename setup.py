@@ -7,8 +7,9 @@ sidecars build via ``make -C autodriver_pointcloud_preprocessor_tpu/native``
 (optional; numpy fallbacks are wire-identical).
 
 The PyTorch + CUDA port ``autodriver_pointcloud_preprocessor_tpu_torch``
-ships its kernel sources (``csrc/*.cu``, ``*.cuh``); they are compiled by
-nvcc at first use (``pip install .[torch]`` for its dependency).
+ships its kernel sources (``csrc/*.cu``, ``*.cuh``) and its host sidecars
+(``native/*.cc``); they are compiled by nvcc and g++ at first use
+(``pip install .[torch]`` for its dependency).
 """
 from setuptools import find_packages, setup
 
@@ -24,6 +25,7 @@ setup(
     package_data={
         "autodriver_pointcloud_preprocessor_tpu.native": ["*.cc", "Makefile", "*.so"],
         "autodriver_pointcloud_preprocessor_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+        "autodriver_pointcloud_preprocessor_tpu_torch.native": ["*.cc"],
     },
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],

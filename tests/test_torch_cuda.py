@@ -538,3 +538,69 @@ def test_wide_voxel_keys_and_new_stage_orders_on_card_match_cpu(cuda):
             outs.append({tuple(r) for r in np.round(to_soa(out, meta)["positions"], 5).tolist()})
         jaccard = len(outs[0] & outs[1]) / max(len(outs[0] | outs[1]), 1)
         assert len(outs[1]) > 100 and jaccard >= 0.99, (extra, jaccard)
+
+
+def _stream_fields(model, packets, pb, seed=0):
+    """A field matrix of chip_smoke's random packets, padded to ``pb``
+    packets, with packet times and count."""
+    import chip_smoke
+    from autodriver_pointcloud_preprocessor_tpu_torch.io.streaming import _split_packet_fields
+
+    payloads, _ = chip_smoke.random_capture(model, packets, seed)
+    fields = np.zeros((1176, pb), np.uint8)
+    fields[:, :packets] = _split_packet_fields(payloads)
+    stamp_off = np.zeros(pb, np.float32)
+    stamp_off[:packets] = np.arange(packets, dtype=np.float32) * 1.3e-3
+    return torch.from_numpy(fields), torch.from_numpy(stamp_off), torch.tensor(packets, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("model", ["VLP16", "HDL32E"])
+def test_stream_decode_and_quantizer_on_card_match_cpu(cuda, model):
+    """The packet decode on the card: mask, ring, intensity, time and
+    distance equal to the CPU's, positions within 1e-4 m; the quantizer:
+    one K1 launch, the count and box equal, rows within one quantum."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.io.compressor import device_quantizer
+    from autodriver_pointcloud_preprocessor_tpu_torch.io.streaming import decode_fields
+
+    tensors = _stream_fields(model, 120, 128)
+    cpu = decode_fields(*tensors, 0.4, 110.0, model)
+    card = decode_fields(*(t.to(cuda) for t in tensors), 0.4, 110.0, model)
+    assert torch.equal(card.mask.cpu(), cpu.mask)
+    for k in ("intensity", "ring", "time", "distance"):
+        assert torch.equal(card.attributes[k].cpu(), cpu.attributes[k]), k
+    assert float((card.positions.cpu() - cpu.positions)[:, cpu.mask].abs().max()) <= 1e-4
+    quantize = device_quantizer(14)
+    before = _build.LAUNCHES["masked_compact"]
+    packed, meta = quantize(card, 1.0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["masked_compact"] == before + 1
+    cpu_packed, cpu_meta = quantize(cpu, 1.0)
+    n = int(cpu_meta[0])
+    assert float(meta[0]) == n > 0
+    torch.testing.assert_close(meta.cpu()[1:], cpu_meta[1:], rtol=1e-6, atol=0)
+    steps = (packed.cpu()[:3, :n].int() - cpu_packed[:3, :n].int()).abs()
+    assert int(steps.max()) <= 1 and float((steps > 0).float().mean()) <= 1e-3
+    assert torch.equal(packed.cpu()[3, :n], cpu_packed[3, :n])
+
+
+def test_streaming_engine_on_card_matches_cpu(cuda, tmp_path):
+    """bench_suite.py config 5 through StreamingEngine on the card and on
+    the CPU: equal survivor counts per revolution, jaccard >= 0.99 on the
+    quantization grid; one K1 (the quantizer's) and two K2 launches a
+    revolution."""
+    import chip_smoke
+    from autodriver_pointcloud_preprocessor_tpu_torch.io.compressor import decompress_soa
+    from autodriver_pointcloud_preprocessor_tpu_torch.io.streaming import StreamingEngine
+
+    path = str(tmp_path / "ring.pcap")
+    chip_smoke.write_pcap(path, *chip_smoke.vlp16_ring_capture(160))
+    engine = StreamingEngine(chip_smoke.CONFIG5, packet_bucket=80)
+    _build.reset_launches()
+    blobs = list(engine.replay_pcap(path))
+    torch.cuda.synchronize()
+    assert len(blobs) == 3
+    assert (_build.LAUNCHES["masked_compact"], _build.LAUNCHES["segmented_sums"]) == (3, 6)
+    cpu = list(StreamingEngine(chip_smoke.CONFIG5, packet_bucket=80, device="cpu").replay_pcap(path))
+    for a, b in zip(blobs, cpu):
+        j, steps, sizes, _ = chip_smoke.grid_jaccard(a, b, decompress_soa)
+        assert sizes[0] == sizes[1] > 0 and j >= 0.99 and steps <= 1

@@ -348,6 +348,17 @@ def test_port_imports_without_jax():
         "import autodriver_pointcloud_preprocessor_tpu_torch.ops.height_ground\n"
         "import autodriver_pointcloud_preprocessor_tpu_torch.ops.voxel\n"
         "import autodriver_pointcloud_preprocessor_tpu_torch.ops.compact\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.io\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.io.streaming\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.io.compressor\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.io.pcap\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.io.pcd\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.io.loader\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.core.codec\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.core.msg\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.core.fields\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.runtime.bus\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.native\n"
         "import chip_smoke\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(m.startswith('autodriver_pointcloud_preprocessor_tpu.')"
