@@ -12,6 +12,7 @@ of single-scan runs on one stream (the reference's ``lax.map``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -102,9 +103,20 @@ class Preprocessor:
             raise
 
     def set_tf_matrix(self, matrix: Optional[np.ndarray]) -> None:
-        """Install (or clear) the sensor->robot homogeneous transform."""
+        """Install (or clear) the sensor->robot homogeneous transform.
+
+        A node with a TF that is not static installs one on every scan:
+        when a transform replaces another, the settings and the pipeline
+        stay and only the matrix is copied to the device (one copy, not a
+        rebuild of every parameter)."""
+        had_tf = self._tf_matrix is not None
         self._tf_matrix = None if matrix is None else np.asarray(matrix, np.float32)
-        self._rebuild()
+        if had_tf and matrix is not None:
+            self.params = dataclasses.replace(
+                self.params, tf_matrix=torch.as_tensor(self._tf_matrix, device=self.device)
+            )
+        else:
+            self._rebuild()
 
     # -- processing -----------------------------------------------------------
 

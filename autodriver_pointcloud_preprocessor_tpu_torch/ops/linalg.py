@@ -1,7 +1,8 @@
-"""Closed-form smallest eigenvector of symmetric 3x3 matrices.
+"""Small geometric linear algebra: quaternions, SE(3), symmetric 3x3 eigen.
 
-Port of the eigensolvers in
-``autodriver_pointcloud_preprocessor_tpu/ops/linalg.py``: the
+Port of ``autodriver_pointcloud_preprocessor_tpu/ops/linalg.py``.
+``quaternion_to_matrix`` and ``se3_matrix`` build the TF graph's 4x4
+transforms (scalar-last quaternions, float32). The eigensolvers: the
 trigonometric closed form for the smallest eigenvalue, then the largest
 cross product of two rows of (A - lambda I). Both the RANSAC refit and
 the normals use it. Degenerate inputs fall back to (0, 0, 1).
@@ -13,9 +14,42 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-__all__ = ["normals_from_entries", "smallest_eigenvector_sym3x3", "smallest_eigvec_entries"]
+__all__ = [
+    "normals_from_entries",
+    "quaternion_to_matrix",
+    "se3_matrix",
+    "smallest_eigenvector_sym3x3",
+    "smallest_eigvec_entries",
+]
+
+
+def quaternion_to_matrix(qx, qy, qz, qw) -> torch.Tensor:
+    """Quaternion (x, y, z, w order, scipy's scalar-last convention) ->
+    float32 3x3 rotation on the CPU. A quaternion of norm n is scaled by
+    s = 2 / n (IEEE division), so it need not be unit; n = 0 gives the
+    identity."""
+    qx, qy, qz, qw = (torch.as_tensor(v, dtype=torch.float32) for v in (qx, qy, qz, qw))
+    n = qx * qx + qy * qy + qz * qz + qw * qw
+    s = torch.where(n > 0, torch.div(torch.tensor(2.0), n), torch.tensor(0.0))
+    xx, yy, zz = qx * qx * s, qy * qy * s, qz * qz * s
+    xy, xz, yz = qx * qy * s, qx * qz * s, qy * qz * s
+    wx, wy, wz = qw * qx * s, qw * qy * s, qw * qz * s
+    return torch.stack([
+        torch.stack([1.0 - (yy + zz), xy - wz, xz + wy]),
+        torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx]),
+        torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)]),
+    ])
+
+
+def se3_matrix(translation, quaternion_xyzw) -> torch.Tensor:
+    """(t, q) -> homogeneous float32 4x4 on the CPU."""
+    rot = quaternion_to_matrix(*quaternion_xyzw)
+    t = torch.as_tensor(np.asarray(translation, np.float32)).reshape(3, 1)
+    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=torch.float32)
+    return torch.cat([torch.cat([rot, t], dim=1), bottom], dim=0)
 
 
 def _smallest_eigenvalue(a00, a11, a22, a01, a02, a12):

@@ -111,11 +111,39 @@ payload parser is the C++ sidecar, built with g++ at first use):
     run with the same draws), ms a revolution, real-time factor, and one
     revolution on the CPU with the same draws (jaccard >= 0.99).
 
+The node layer (``runtime``, ``parallel``, ``cli``), on the production
+preset at full width, every kernel launch counted per callback:
+
+28. (t) ``PointcloudPreprocessorNode`` on the card (no device given) with a
+    static TF on its buffer: 23 Velodyne-style PointCloud2 messages (the
+    bench scenes of seeds 0-22 as x, y, z, intensity, ring, NaN returns
+    included; 3 warm-up, 20 timed). Every message publishes one cloud
+    (``frame_count`` = messages, so a scan the callback's log-and-drop
+    ``except`` swallowed fails), byte-equal to a lone
+    ``Preprocessor(PRODUCTION_128K_CONFIG)`` with the same seed and TF on
+    the same inputs in order; launches 1/1/2 a callback; callback ms p50
+    and p90 and the ``processing_times`` keys. The same with the TF looked
+    up on every scan (clouds byte-equal; ``set_tf_matrix``'s ms), and
+    pipelined (the same clouds one callback later, ``flush_pipeline``
+    publishes the last). One message on a CPU node (its own RANSAC draws):
+    jaccard >= 0.99, >= 98% of normals within 2 degrees.
+29. (u) Three namespaced production nodes -> a ``sync`` concatenator on the
+    card (extrinsics yaw 120 degrees and 200 m apart) -> the compressor
+    node: 3 warm-up and 8 timed rounds of three 128,000-point messages, each
+    1 merged frame whose count is the sum of the nodes' outputs, each
+    sensor's survivors in its extrinsic's region, launches 3/3/6; the
+    card's merge byte-equal to a CPU concatenator's on the same messages;
+    a live ``voxel_size`` reconfigure of one node moves its count alone.
+30. (v) ``cli.preprocessor_main`` with no ``--device`` on three 128,000-point
+    PCD files (3/3/6 launches, files byte-equal to a saving node's), and
+    ``cli.warmup_main --preset production_128k --buckets 131072``.
+
 With ``--profile DIR`` it also traces, with torch.profiler, 5 single scans
 and one vmapped batch of the production preset and of config 2, 5
 QUALITY scans, 5 scans of each path of phases 17-22 (3 of config 6, 1 of
 FPS and of config 7 in scene order), and (27, phase (s)) 5 revolutions of
-config 5's replay and of phase (r), and (r)'s batch of 8, and writes the
+config 5's replay and of phase (r), and (r)'s batch of 8, 5 callbacks of
+the node and of the pipelined node, and 2 graph rounds, and writes the
 time per operator (device and host) to ``DIR/profile.txt``, each table
 headed by its device-busy share, launches and syncs.
 
@@ -1314,6 +1342,349 @@ def streaming_slice(dev, production_cfg):
             "k1_quantizer": k1_quant}
 
 
+#: phases (t)-(v): the node's static sensor -> robot transform (yaw 30
+#: degrees, the sensor 1.9 m up), the processing_times keys they print, and
+#: the three sensors' extrinsics (yaw 120 degrees apart, 200 m apart along
+#: x, so that every sensor's survivors lie in a region of their own)
+NODE_TF = ((1.5, -0.5, 1.9), (0.0, 0.0, float(np.sin(np.pi / 12)), float(np.cos(np.pi / 12))))
+NODE_TIME_KEYS = ("ros_to_numpy", "tf_lookup", "tensor_transfer", "preprocessing_time",
+                  "device_to_host", "pointcloud_msg_parsing", "pointcloud_pub", "total_callback_time")
+GRAPH_SENSORS, GRAPH_SPACING, GRAPH_ROUNDS = 3, 200.0, 8
+NODE_LAUNCHES = (1, 1, 2)
+
+
+def velodyne_msg(seed: int, stamp: float, frame: str = "velodyne"):
+    """The bench scene of ``seed`` as a Velodyne-style PointCloud2: x, y, z,
+    intensity float32 and ring uint16, the NaN returns included."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.core import (
+        Header, PointFieldType, Time, build_pointfields, make_pointcloud2,
+        structured_dtype_from_fields,
+    )
+
+    soa = bench_soa(seed)
+    fields, step = build_pointfields(["x", "y", "z", "intensity", "ring"],
+                                     [PointFieldType.FLOAT32] * 4 + [PointFieldType.UINT16])
+    arr = np.zeros(len(soa["positions"]), dtype=structured_dtype_from_fields(fields, step))
+    arr["x"], arr["y"], arr["z"] = soa["positions"].T
+    arr["intensity"], arr["ring"] = soa["intensity"], soa["ring"]
+    return make_pointcloud2(arr, fields, header=Header(Time.from_float(stamp), frame), is_dense=False)
+
+
+def node_slice(dev, production_cfg):
+    """Phases 28-30: the node, the three-sensor graph and the CLI on the
+    card (see the module docstring). Returns each path's launch counts and
+    timings and the profile runs."""
+    import contextlib
+    import functools
+    import io
+    import os
+
+    from autodriver_pointcloud_preprocessor_tpu_torch import cli
+    from autodriver_pointcloud_preprocessor_tpu_torch.core import (
+        Time, pointcloud_to_dict, read_points, soa_to_structured,
+    )
+    from autodriver_pointcloud_preprocessor_tpu_torch.io.compressor import (
+        PointcloudCompressorNode, decompress_soa,
+    )
+    from autodriver_pointcloud_preprocessor_tpu_torch.io.loader import PointcloudLoader
+    from autodriver_pointcloud_preprocessor_tpu_torch.io.pcd import write_point_cloud
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.preprocessor import Preprocessor
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops import _build
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops.linalg import se3_matrix
+    from autodriver_pointcloud_preprocessor_tpu_torch.parallel import PointcloudConcatenatorNode
+    from autodriver_pointcloud_preprocessor_tpu_torch.runtime import (
+        Parameter, PointcloudPreprocessorNode, TopicBus,
+    )
+
+    launches, timings, profile = {}, {}, []
+    counts = lambda: tuple(_build.LAUNCHES[k] for k in KERNELS)  # noqa: E731
+    tf = se3_matrix(*NODE_TF).numpy()
+    scans = WARMUP + TIMED
+
+    def make_node(name, bus, device=None, **overrides):
+        """A production node with the static TF on its buffer and a
+        subscriber (the 0-subscriber short-circuit would skip every scan)."""
+        node = PointcloudPreprocessorNode(
+            node_name=name, bus=bus, device=device,
+            pipelined=overrides.pop("pipelined", False),
+            overrides={**production_cfg, "robot_frame": "base_link", **overrides})
+        node.tf_buffer.set_transform("base_link", "velodyne", matrix=tf)
+        outs = []
+        bus.create_subscription(node.output_topic, outs.append)
+        return node, outs
+
+    def drive_node(tag, node, bus, msgs, outs, published):
+        """Every message through ``node.callback`` via the bus; the counts
+        are set to 0 just before and read just after, and each callback
+        must launch K1/K2/K3 1/1/2 times. Returns the callback ms (host
+        clock; ``to_soa`` has synchronised) and the processing_times of
+        the timed callbacks."""
+        pub = bus.create_publisher(node.input_topic)
+        cb_ms, times = [], []
+        _build.reset_launches()
+        for i, msg in enumerate(msgs):
+            before = counts()
+            w0 = time.perf_counter()
+            pub.publish(msg)
+            w1 = time.perf_counter()
+            got = tuple(a - b for a, b in zip(counts(), before))
+            check(got == NODE_LAUNCHES, f"({tag}) callback {i}: launches {got}, expected {NODE_LAUNCHES}")
+            check(len(outs) == published(i), f"({tag}) callback {i}: {len(outs)} clouds published")
+            if i >= WARMUP:
+                cb_ms.append((w1 - w0) * 1e3)
+                times.append(dict(node.processing_times))
+        launches[tag] = dict(zip(KERNELS, counts()))
+        check(counts() == tuple(len(msgs) * c for c in NODE_LAUNCHES),
+              f"({tag}) launches {counts()} in {len(msgs)} callbacks")
+        return cb_ms, times
+
+    def report(tag, cb_ms, times, note=""):
+        p50, p90 = float(np.median(cb_ms)), float(np.percentile(cb_ms, 90))
+        # the pipelined node's engine records no tensor_transfer and no
+        # device_to_host (process_soa_async), as the reference's
+        keys = {k: float(np.median([t[k] for t in times])) * 1e3 for k in NODE_TIME_KEYS
+                if k in times[0]}
+        timings[tag] = {"p50_ms": p50, "p90_ms": p90, "callbacks": len(cb_ms),
+                        "processing_times_p50_ms": keys}
+        print(f"[chip_smoke] ({tag}) callback ms p50 {p50:.3f}, p90 {p90:.3f} (host clock around "
+              f"publish, {len(cb_ms)} timed){note}; processing_times p50 ms "
+              f"{json.dumps({k: round(v, 3) for k, v in keys.items()})}")
+
+    # ---- (t) the node at full width ---------------------------------------
+    t0 = time.perf_counter()
+    msgs = [velodyne_msg(i, 100.0 + 0.1 * i) for i in range(scans)]
+    bus_t = TopicBus()
+    node, outs = make_node("node", bus_t)
+    check(node.engine.device == dev, f"the node's engine runs on {node.engine.device}, not {dev}")
+    check(node.use_gpu is False, "use_gpu defaults to True")
+    cb_ms, times = drive_node("node", node, bus_t, msgs, outs, lambda i: i + 1)
+    check(node.frame_count == len(msgs) == len(outs),
+          f"(t) {node.frame_count} frames for {len(msgs)} messages ({len(outs)} published)")
+    check(set(NODE_TIME_KEYS) <= set(node.processing_times),
+          f"(t) processing_times keys {sorted(node.processing_times)}")
+    check(all(o.header.frame_id == "base_link" for o in outs), "(t) header frame not overridden")
+    # a lone engine with the same seed and TF, on the same inputs in order
+    lone = Preprocessor(production_cfg)
+    lone.set_tf_matrix(node.camera_to_robot_tf)
+    sizes = []
+    for i, (msg, out) in enumerate(zip(msgs, outs)):
+        soa, meta = pointcloud_to_dict(msg)
+        want, meta = lone.process_soa(soa, meta)
+        n = want["positions"].shape[0]
+        check(0 < n < 50_000 and want["normals"].shape == (n, 3), f"(t) scan {i}: {n} survivors")
+        check(soa_to_structured(want, meta, node.new_dtype, include_normals=True).tobytes() == out.data,
+              f"(t) callback {i}: the published cloud differs from the lone Preprocessor's")
+        sizes.append(n)
+    report("node", cb_ms, times, f", survivors {min(sizes)}..{max(sizes)}, every cloud byte-equal to a "
+           f"lone Preprocessor's; {node.frame_count} frames for {len(msgs)} messages")
+    pub_t = bus_t.create_publisher(node.input_topic)
+    profile.append(("node: 5 callbacks (static TF)", lambda: [pub_t.publish(m) for m in msgs[:5]]))
+
+    # the same messages with the TF looked up and installed on every scan
+    bus_d = TopicBus()
+    node_d, outs_d = make_node("node_dynamic_tf", bus_d, static_camera_to_robot_tf=False)
+    cb_ms, times = drive_node("node_dynamic_tf", node_d, bus_d, msgs, outs_d, lambda i: i + 1)
+    check([o.data for o in outs_d] == [o.data for o in outs], "(t) dynamic TF changed the clouds")
+    report("node_dynamic_tf", cb_ms, times, ", clouds byte-equal to the static TF's")
+    w0 = time.perf_counter()
+    for _ in range(50):
+        node_d.engine.set_tf_matrix(tf)
+    torch.cuda.synchronize()
+    set_tf_ms = (time.perf_counter() - w0) * 1e3 / 50
+    timings["node_dynamic_tf"]["set_tf_matrix_ms"] = set_tf_ms
+    print(f"[chip_smoke] (t) Preprocessor.set_tf_matrix: {set_tf_ms:.4f} ms a call (host clock, 50 calls)")
+
+    # pipelined: the same clouds one callback later, flush publishes the last
+    bus_p = TopicBus()
+    node_p, outs_p = make_node("node_pipelined", bus_p, pipelined=True)
+    cb_ms, times = drive_node("node_pipelined", node_p, bus_p, msgs, outs_p, lambda i: i)
+    node_p.flush_pipeline()
+    torch.cuda.synchronize()
+    check(len(outs_p) == len(msgs) and node_p.frame_count == len(msgs),
+          f"(t) pipelined: {len(outs_p)} clouds, {node_p.frame_count} frames for {len(msgs)} messages")
+    check([o.data for o in outs_p] == [o.data for o in outs], "(t) pipelined clouds differ")
+    report("node_pipelined", cb_ms, times, ", clouds byte-equal to the node's, one callback later")
+    pub_p = bus_p.create_publisher(node_p.input_topic)
+    profile.append(("node pipelined: 5 callbacks", lambda: [pub_p.publish(m) for m in msgs[:5]]))
+
+    # one message on a CPU node and on a fresh card node with the same
+    # RANSAC draws: each generator's own draws move up to ~4% of this
+    # scene's survivors (the plane refit on another inlier set), which
+    # says nothing of the port
+    settings = node.engine.settings
+    draws = torch.from_numpy(np.random.default_rng(2).uniform(
+        size=(settings.num_iterations, settings.ransac_n)).astype(np.float32))
+    same_draws = {}
+    for name, device in (("node_card", None), ("node_cpu", "cpu")):
+        bus_x = TopicBus()
+        node_x, outs_x = make_node(name, bus_x, device=device)
+        node_x.engine.process_buffer = functools.partial(
+            node_x.engine.process_buffer, ground_uniforms=draws.to(node_x.engine.device))
+        t1 = time.perf_counter()
+        bus_x.create_publisher(node_x.input_topic).publish(msgs[0])
+        check(node_x.frame_count == 1, f"(t) {name} dropped the message")
+        same_draws[name] = (outs_x[0], time.perf_counter() - t1)
+
+    def survivors(msg):
+        pts = read_points(msg)
+        return survivor_normals({
+            "positions": np.stack([pts["x"], pts["y"], pts["z"]], 1),
+            "normals": np.stack([pts["normal_x"], pts["normal_y"], pts["normal_z"]], 1)})
+
+    a, c = survivors(same_draws["node_card"][0]), survivors(same_draws["node_cpu"][0])
+    cpu_s = same_draws["node_cpu"][1]
+    common = a.keys() & c.keys()
+    j = len(common) / max(len(a.keys() | c.keys()), 1)
+    cos = np.array([abs(float(np.dot(a[p], c[p]))) for p in common])
+    normals_ok = float((cos >= np.cos(np.deg2rad(2.0))).mean()) if len(cos) else 0.0
+    check(j >= 0.99 and normals_ok >= 0.98,
+          f"(t) card vs CPU node: jaccard {j:.5f}, normals within 2 deg {normals_ok:.5f}")
+    print(f"[chip_smoke] (t) card vs CPU node (the same RANSAC draws): survivors {len(a)} vs {len(c)}, "
+          f"jaccard {j:.5f}, normals within 2 deg {normals_ok:.5f} (CPU callback {cpu_s:.1f} s) "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- (u) the three-sensor graph at full width --------------------------
+    t0 = time.perf_counter()
+    ext = {f"/lidar{i}/processed": se3_matrix(
+        (GRAPH_SPACING * i, 0.0, 0.0), (0.0, 0.0, float(np.sin(np.pi * i / 3)), float(np.cos(np.pi * i / 3)))
+    ).numpy() for i in range(GRAPH_SENSORS)}
+    bus_u = TopicBus()
+    nodes = [PointcloudPreprocessorNode(
+        node_name=f"pre_{i}", parameter_namespace=f"lidar{i}", bus=bus_u,
+        overrides={**production_cfg, "input_topic": f"/lidar{i}/points",
+                   "output_topic": f"/lidar{i}/processed"}) for i in range(GRAPH_SENSORS)]
+    concat = PointcloudConcatenatorNode(bus_u, list(ext), output_topic="/merged", extrinsics=ext,
+                                        mode="sync", slop=0.05)
+    check(concat.device == dev and all(e.device == dev for e in concat.extrinsics.values()),
+          f"the concatenator runs on {concat.device}")
+    comp = PointcloudCompressorNode(bus_u, "/merged", "/merged/compressed")
+    merged, blobs = [], []
+    bus_u.create_subscription("/merged", merged.append)
+    bus_u.create_subscription("/merged/compressed", blobs.append)
+    pubs = [bus_u.create_publisher(f"/lidar{i}/points") for i in range(GRAPH_SENSORS)]
+    graph_msgs = [velodyne_msg(100 + i, 0.0, frame=f"lidar{i}") for i in range(GRAPH_SENSORS)]
+
+    def graph_round(r):
+        """One round: each sensor's message (stamps within the slop), the
+        engines reseeded so that a round repeats the last one exactly.
+        Returns (host ms, the nodes' output counts)."""
+        for n in nodes:
+            n.engine.generator.manual_seed(0)
+        for i, msg in enumerate(graph_msgs):
+            msg.header.stamp = Time.from_float(10.0 + r + 0.01 * i)
+        frames = concat.frame_count
+        w0 = time.perf_counter()
+        for pub, msg in zip(pubs, graph_msgs):
+            pub.publish(msg)
+        ms = (time.perf_counter() - w0) * 1e3
+        check(concat.frame_count == frames + 1 and comp.frame_count == len(blobs) == frames + 1,
+              f"(u) round {r}: {concat.frame_count - frames} merged frames")
+        return ms, [read_points(n.latest_output).shape[0] for n in nodes]
+
+    def check_round(r, sizes):
+        pts = read_points(merged[-1])
+        check(pts.shape[0] == sum(sizes), f"(u) round {r}: merged {pts.shape[0]} != {sum(sizes)}")
+        start = 0
+        for i, n in enumerate(sizes):
+            seg = pts[start:start + n]
+            d = np.hypot(seg["x"] - GRAPH_SPACING * i, seg["y"])
+            check(n > 0 and float(d.max()) < 90.0, f"(u) round {r}: sensor {i}'s survivors leave its region")
+            start += n
+        soa = decompress_soa(blobs[-1].data)
+        check(soa["positions"].shape[0] == pts.shape[0], "(u) the blob's count differs from the merge")
+
+    round_ms, sizes0 = [], None
+    _build.reset_launches()
+    for r in range(WARMUP + GRAPH_ROUNDS):
+        before = counts()
+        ms, sizes = graph_round(r)
+        got = tuple(a - b for a, b in zip(counts(), before))
+        want = tuple(GRAPH_SENSORS * c for c in NODE_LAUNCHES)
+        check(got == want, f"(u) round {r}: launches {got}, expected {want}")
+        check_round(r, sizes)
+        check(sizes0 is None or sizes == sizes0, f"(u) round {r}: counts {sizes} != {sizes0}")
+        sizes0 = sizes
+        if r >= WARMUP:
+            round_ms.append(ms)
+    launches["graph3"] = dict(zip(KERNELS, counts()))
+    # the card concatenator against a CPU one on the same three messages
+    cpu_bus = TopicBus()
+    cpu_concat = PointcloudConcatenatorNode(cpu_bus, list(ext), output_topic="/merged", extrinsics=ext,
+                                            mode="sync", slop=0.05, device="cpu")
+    cpu_merged = []
+    cpu_bus.create_subscription("/merged", cpu_merged.append)
+    for topic, node in zip(ext, nodes):
+        cpu_bus.create_publisher(topic).publish(node.latest_output)
+    check(cpu_concat.frame_count == 1 and cpu_merged[0].data == merged[-1].data,
+          "(u) the card concatenator's merge is not bit-equal to the CPU one's")
+    # a live voxel_size reconfigure of one node: its count moves, not the others'
+    res = nodes[1].set_parameters([Parameter("lidar1.voxel_size", 0.3)])
+    check(res[0].successful, f"(u) reconfigure refused: {res[0].reason}")
+    _, sizes = graph_round(WARMUP + GRAPH_ROUNDS)
+    check_round("reconfigured", sizes)
+    check(sizes[1] < sizes0[1] and sizes[0] == sizes0[0] and sizes[2] == sizes0[2],
+          f"(u) after lidar1.voxel_size=0.3: counts {sizes0} -> {sizes}")
+    p50, p90 = float(np.median(round_ms)), float(np.percentile(round_ms, 90))
+    timings["graph3"] = {"p50_ms": p50, "p90_ms": p90, "rounds": len(round_ms)}
+    print(f"[chip_smoke] (u) three production nodes -> sync concatenator on the card -> compressor: "
+          f"{GRAPH_ROUNDS} timed rounds of {GRAPH_SENSORS} x {N_POINTS} points, 1 merged frame each, "
+          f"launches {json.dumps(launches['graph3'])} "
+          f"({tuple(GRAPH_SENSORS * c for c in NODE_LAUNCHES)} a round), counts {sizes0} (sum = merged), each "
+          f"sensor in its region; card merge bit-equal to the CPU concatenator's; lidar1.voxel_size=0.3 "
+          f"-> counts {sizes}; ms a round p50 {p50:.3f}, p90 {p90:.3f} (host clock, publish to blob) "
+          f"({time.perf_counter() - t0:.1f} s)")
+    profile.append(("graph3: 2 rounds", lambda: [graph_round(100 + r) for r in range(2)]))
+
+    # ---- (v) the CLI on the card ---------------------------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out_cli, out_node = (os.path.join(tmp, d) for d in ("in", "cli", "node"))
+        os.makedirs(src)
+        for i in range(3):
+            write_point_cloud(os.path.join(src, f"{i:04d}.pcd"), bench_soa(200 + i))
+        params = os.path.join(tmp, "production.json")
+        with open(params, "w") as f:
+            json.dump(production_cfg, f)
+        _build.reset_launches()
+        w0 = time.perf_counter()
+        stdout = io.StringIO()
+        with contextlib.redirect_stdout(stdout):
+            rc = cli.preprocessor_main([src, "-o", out_cli, "--params", params])
+        cli_s = time.perf_counter() - w0
+        check(rc == 0 and counts() == tuple(3 * c for c in NODE_LAUNCHES),
+              f"(v) preprocessor_main: rc {rc}, launches {counts()} for 3 scans")
+        launches["cli"] = dict(zip(KERNELS, counts()))
+        # the node on the same files, saving what it publishes
+        bus_v = TopicBus()
+        node_v = PointcloudPreprocessorNode(bus=bus_v, overrides={
+            **production_cfg, "save_pointcloud": True, "pointcloud_save_directory": out_node})
+        bus_v.create_subscription(node_v.output_topic, lambda m: None)
+        pub_v = bus_v.create_publisher(node_v.input_topic)
+        for msg in PointcloudLoader(src, rate_hz=0).scans():
+            pub_v.publish(msg)
+        check(node_v.frame_count == 3, f"(v) the node published {node_v.frame_count} of 3 scans")
+        files = sorted(os.listdir(out_cli))
+        check(files == sorted(os.listdir(out_node)) == [f"{i:08d}.pcd" for i in range(3)],
+              f"(v) files {files} vs {sorted(os.listdir(out_node))}")
+        for name in files:
+            with open(os.path.join(out_cli, name), "rb") as a, open(os.path.join(out_node, name), "rb") as b:
+                check(a.read() == b.read(), f"(v) {name}: the CLI's output differs from the node's")
+        print(f"[chip_smoke] (v) preprocessor_main (no --device) on 3 PCD files of {N_POINTS} points: "
+              f"{stdout.getvalue().strip()!r} in {cli_s:.2f} s, launches {json.dumps(launches['cli'])}, "
+              f"files byte-equal to the node's")
+    stdout = io.StringIO()
+    w0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = cli.warmup_main(["--preset", "production_128k", "--buckets", str(CAPACITY)])
+    lines = stdout.getvalue().strip().splitlines()
+    check(rc == 0 and any(ln.startswith(f"warmup bucket {CAPACITY}:") for ln in lines)
+          and lines[-1].startswith(f"warmed {CAPACITY} in"), f"(v) warmup_main: rc {rc}, {lines}")
+    for ln in lines:
+        print(f"[chip_smoke] (v) warmup_main: {ln}")
+    print(f"[chip_smoke] (v) warmup_main {time.perf_counter() - w0:.2f} s ({time.perf_counter() - t0:.1f} s)")
+    return {"launches": launches, "timings": timings, "profile": profile}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
@@ -1698,6 +2069,9 @@ def main() -> None:
     # ---- the streaming data path: packets in, compressed clouds out ------
     slice5 = streaming_slice(dev, cfg)
 
+    # ---- the node layer: the node, the three-sensor graph, the CLI -------
+    slice6 = node_slice(dev, cfg)
+
     if "--profile" in sys.argv:
         def single():
             for _ in range(5):
@@ -1708,7 +2082,7 @@ def main() -> None:
             [("production: 5 single scans", single),
              (f"production: 1 vmapped batch of {BATCH}",
               lambda: engine.process_batch(bufs, ground_uniforms=batch_draws)),
-             *slice3["profile"], *slice4["profile"], *slice5["profile"]],
+             *slice3["profile"], *slice4["profile"], *slice5["profile"], *slice6["profile"]],
             dev, sys.argv[sys.argv.index("--profile") + 1],
         )
 
@@ -1718,7 +2092,7 @@ def main() -> None:
     # config 2's shapes ride beside
     paths = {"production_single": single_launches,
              **{f"production_{m}": v for m, v in batch_launches.items()},
-             **slice3["launches"], **slice4["launches"], **slice5["launches"]}
+             **slice3["launches"], **slice4["launches"], **slice5["launches"], **slice6["launches"]}
     for name, counts in paths.items():
         # config 3 (RANSAC alone) runs no kernel; drive() checked its zeros
         check(name == "config3" or any(counts.values()), f"path {name} launched no kernel")
@@ -1755,6 +2129,7 @@ def main() -> None:
     print(f"[chip_smoke] configuration surface ms/scan: {json.dumps(slice4['timings'])}")
     print(f"[chip_smoke] streaming ms/revolution: {json.dumps(slice5['timings'])}")
     print(f"[chip_smoke] streaming decode and quantizer ops: {json.dumps(slice5['ops'])}")
+    print(f"[chip_smoke] node layer ms: {json.dumps(slice6['timings'])}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,8 @@ sidecars build via ``make -C autodriver_pointcloud_preprocessor_tpu/native``
 The PyTorch + CUDA port ``autodriver_pointcloud_preprocessor_tpu_torch``
 ships its kernel sources (``csrc/*.cu``, ``*.cuh``) and its host sidecars
 (``native/*.cc``); they are compiled by nvcc and g++ at first use
-(``pip install .[torch]`` for its dependency).
+(``pip install .[torch]`` for its dependency). Its console commands carry
+a ``_torch`` suffix (``pointcloud_preprocessor_torch`` and so on).
 """
 from setuptools import find_packages, setup
 
@@ -41,6 +42,11 @@ setup(
             "pointcloud_loader = autodriver_pointcloud_preprocessor_tpu.cli:loader_main",
             "pointcloud_concatenator = autodriver_pointcloud_preprocessor_tpu.cli:concatenator_main",
             "pointcloud_warmup = autodriver_pointcloud_preprocessor_tpu.cli:warmup_main",
+            "pointcloud_preprocessor_torch = autodriver_pointcloud_preprocessor_tpu_torch.cli:preprocessor_main",
+            "pointcloud_compressor_torch = autodriver_pointcloud_preprocessor_tpu_torch.cli:compressor_main",
+            "pointcloud_loader_torch = autodriver_pointcloud_preprocessor_tpu_torch.cli:loader_main",
+            "pointcloud_concatenator_torch = autodriver_pointcloud_preprocessor_tpu_torch.cli:concatenator_main",
+            "pointcloud_warmup_torch = autodriver_pointcloud_preprocessor_tpu_torch.cli:warmup_main",
         ],
     },
 )

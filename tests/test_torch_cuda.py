@@ -604,3 +604,130 @@ def test_streaming_engine_on_card_matches_cpu(cuda, tmp_path):
     for a, b in zip(blobs, cpu):
         j, steps, sizes, _ = chip_smoke.grid_jaccard(a, b, decompress_soa)
         assert sizes[0] == sizes[1] > 0 and j >= 0.99 and steps <= 1
+
+
+def _node(device=None, **overrides):
+    from autodriver_pointcloud_preprocessor_tpu_torch.runtime import (
+        PointcloudPreprocessorNode,
+        TopicBus,
+    )
+
+    bus = TopicBus()
+    node = PointcloudPreprocessorNode(bus=bus, device=device,
+                                      overrides={**PRODUCTION_128K_CONFIG, **overrides})
+    outs = []
+    bus.create_subscription(node.output_topic, outs.append)
+    return node, bus.create_publisher(node.input_topic), outs
+
+
+def test_node_on_card_matches_cpu(cuda):
+    """The production node on the card (no device given) and on the CPU,
+    one 128,000-point message each with the same RANSAC draws: one cloud
+    each, launches 1/1/2 on the card, survivors by jaccard >= 0.99, >= 98%
+    of common normals within 2 degrees."""
+    import functools
+
+    import chip_smoke
+    from autodriver_pointcloud_preprocessor_tpu_torch.core import read_points
+
+    msg = chip_smoke.velodyne_msg(0, 1.0)
+    draws = torch.from_numpy(_rng(2).uniform(size=(64, 3)).astype(np.float32))
+    outs = {}
+    for device in (None, "cpu"):
+        node, pub, outs[device] = _node(device=device)
+        node.engine.process_buffer = functools.partial(
+            node.engine.process_buffer, ground_uniforms=draws.to(node.engine.device))
+        _build.reset_launches()
+        pub.publish(msg)
+        assert node.frame_count == 1
+        if device is None:
+            torch.cuda.synchronize()
+            assert node.engine.device == cuda
+            assert tuple(_build.LAUNCHES[k] for k in chip_smoke.KERNELS) == (1, 1, 2)
+
+    def survivors(m):
+        p = read_points(m)
+        return chip_smoke.survivor_normals({
+            "positions": np.stack([p["x"], p["y"], p["z"]], 1),
+            "normals": np.stack([p["normal_x"], p["normal_y"], p["normal_z"]], 1)})
+
+    a, c = survivors(outs[None][0]), survivors(outs["cpu"][0])
+    common = a.keys() & c.keys()
+    assert len(common) / len(a.keys() | c.keys()) >= 0.99
+    cos = np.array([abs(float(np.dot(a[p], c[p]))) for p in common])
+    assert float((cos >= np.cos(np.deg2rad(2.0))).mean()) >= 0.98
+
+
+def test_concatenator_on_card_matches_cpu(cuda):
+    """Three sensors with their own time bases and extrinsics: the card's
+    merged cloud is byte-equal to the CPU concatenator's."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.core import Time
+    from autodriver_pointcloud_preprocessor_tpu_torch.io.loader import soa_to_pointcloud2
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops.linalg import se3_matrix
+    from autodriver_pointcloud_preprocessor_tpu_torch.parallel import PointcloudConcatenatorNode
+    from autodriver_pointcloud_preprocessor_tpu_torch.runtime import TopicBus
+
+    rng = _rng(5)
+    topics = ["/a", "/b", "/c"]
+    ext = {t: se3_matrix(tuple(rng.normal(0, 10, 3)), tuple(rng.normal(size=4))).numpy() for t in topics}
+    msgs = []
+    for i in range(3):
+        n = 40_000 + 1000 * i
+        t = 50.0 + 0.013 * i
+        soa = {"positions": rng.normal(0, 20, (n, 3)).astype(np.float32),
+               "intensity": rng.uniform(0, 255, n).astype(np.float32),
+               "time": t + np.sort(rng.uniform(0, 0.1, n))}
+        msgs.append(soa_to_pointcloud2(soa, frame_id=f"s{i}", stamp=Time.from_float(t)))
+    merged = {}
+    for device in ("cuda", "cpu"):
+        bus = TopicBus()
+        node = PointcloudConcatenatorNode(bus, topics, extrinsics=ext, device=None if device == "cuda" else "cpu")
+        assert node.device.type == device
+        merged[device] = []
+        bus.create_subscription("/points/concatenated", merged[device].append)
+        for topic, msg in zip(topics, msgs):
+            bus.create_publisher(topic).publish(msg)
+    assert len(merged["cuda"]) == len(merged["cpu"]) == 1
+    assert merged["cuda"][0].width == 123_000
+    assert merged["cuda"][0].data == merged["cpu"][0].data
+
+
+def test_preprocessor_cli_defaults_to_the_card(cuda, tmp_path):
+    """``preprocessor_main`` with no ``--device`` runs its scans through
+    the kernels on cuda:0."""
+    import json
+
+    import chip_smoke
+    from autodriver_pointcloud_preprocessor_tpu_torch import cli
+    from autodriver_pointcloud_preprocessor_tpu_torch.io.pcd import read_point_cloud, write_point_cloud
+
+    src = tmp_path / "in"
+    src.mkdir()
+    for i in range(2):
+        write_point_cloud(str(src / f"{i:04d}.pcd"), chip_smoke.bench_soa(i))
+    params = tmp_path / "p.json"
+    params.write_text(json.dumps(PRODUCTION_128K_CONFIG))
+    _build.reset_launches()
+    assert cli.preprocessor_main([str(src), "-o", str(tmp_path / "out"), "--params", str(params)]) == 0
+    torch.cuda.synchronize()
+    assert tuple(_build.LAUNCHES[k] for k in chip_smoke.KERNELS) == (2, 2, 4)
+    cloud = read_point_cloud(str(tmp_path / "out" / "00000001.pcd"))
+    assert 0 < cloud["positions"].shape[0] < 50_000 and cloud["normals"].shape[1] == 3
+
+
+def test_node_with_use_gpu_false_runs_on_the_card(cuda):
+    """``use_gpu`` is reported, never a device switch: a node constructed
+    with it False, and reconfigured either way, stays on cuda:0."""
+    import chip_smoke
+    from autodriver_pointcloud_preprocessor_tpu_torch.runtime import Parameter
+
+    node, pub, outs = _node(use_gpu=False)
+    assert node.use_gpu is False and node.engine.device == cuda
+    for value in (True, False):
+        assert node.set_parameters([Parameter("use_gpu", value)])[0].successful
+        assert node.engine.device == cuda and node.engine.params.voxel_size.device == cuda
+    _build.reset_launches()
+    pub.publish(chip_smoke.velodyne_msg(1, 2.0))
+    torch.cuda.synchronize()
+    assert node.frame_count == 1 and len(outs) == 1
+    assert tuple(_build.LAUNCHES[k] for k in chip_smoke.KERNELS) == (1, 1, 2)

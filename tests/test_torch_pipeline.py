@@ -358,6 +358,12 @@ def test_port_imports_without_jax():
         "import autodriver_pointcloud_preprocessor_tpu_torch.core.msg\n"
         "import autodriver_pointcloud_preprocessor_tpu_torch.core.fields\n"
         "import autodriver_pointcloud_preprocessor_tpu_torch.runtime.bus\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.runtime.node\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.runtime.tf\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.runtime.params\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.parallel\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.parallel.concat\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.cli\n"
         "import autodriver_pointcloud_preprocessor_tpu_torch.native\n"
         "import chip_smoke\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
