@@ -45,4 +45,10 @@ from .scan import (
     unstack_buffer,
     valid_count,
 )
-from .timing import StageTimer, ThrottledWarner, get_current_time, get_time_difference
+from .timing import (
+    REFERENCE_STAGE_KEYS,
+    StageTimer,
+    ThrottledWarner,
+    get_current_time,
+    get_time_difference,
+)

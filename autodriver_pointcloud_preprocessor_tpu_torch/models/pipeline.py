@@ -17,8 +17,8 @@ fused multi-pass Hilbert-window neighbourhood (K3) with the mean+std
 outlier threshold of each scan and the radius-outlier count riding the
 same sweep, and the standalone statistical outlier, radius outlier and
 normal stages (exact kNN or the window). ``pallas_ok=False`` (the
-reference's XLA kernel variants) raises ``NotImplementedError`` naming its
-ROADMAP item.
+reference's XLA window fallback) raises ``NotImplementedError``: the port
+has one route per kernel.
 
 Every stage takes one scan or a batch of scans (a leading axis on every
 tensor of the buffer, ``core.stack_buffers``), so the same runner serves
@@ -299,12 +299,6 @@ class PipelineParams:
         )
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to the torch package yet (ROADMAP {item})"
-    )
-
-
 #: Stage names with the reference's timing keys (pointcloud_preprocessor.py
 #: stage timers; see core/timing.py), as the reference's pipeline has them.
 STAGE_TIMING_KEYS = {
@@ -329,7 +323,11 @@ def _check_supported(settings: "PipelineSettings") -> None:
     if not settings.pallas_ok:
         # the reference's XLA variants compute another window (wb=0 widens
         # to a full block per side); the port has one route per kernel
-        raise _not_ported("pallas_ok=False", "item 13")
+        raise NotImplementedError(
+            "pallas_ok=False selects the reference's XLA window fallback (wb=0 "
+            "widened to a full block per side), which the torch package does not "
+            "port: it has one route per kernel (ROADMAP, not ported)"
+        )
 
 
 def stage_functions(settings: PipelineSettings, separate_stages: bool = False):

@@ -21,7 +21,12 @@ from .finite import mask_non_finite
 from .ground import remove_ground, segment_plane
 from .height_ground import remove_ground_by_height
 from .knn import knn_exact
-from .linalg import smallest_eigenvector_sym3x3, smallest_eigvec_entries
+from .linalg import (
+    quaternion_to_matrix,
+    se3_matrix,
+    smallest_eigenvector_sym3x3,
+    smallest_eigvec_entries,
+)
 from .normals import estimate_normals
 from .outliers import remove_statistical_outliers
 from .radius_outliers import remove_radius_outliers

@@ -13,9 +13,11 @@ one sort, K3 and one unsort a pass), and the fused neighbourhood in its
 unsorting (``fused_neighborhood_stats``) and reordering
 (``fused_neighborhood_stats_reordered``) forms, presorted or not, with
 the second radius's count, pass-merged or pass-0 normals, and the
-capacity shrink. There is one route: K3 on the card, its plain version on
-the CPU. Not ported: the quantization ``bounds`` of the sharded callers
-(ROADMAP item 13) and the Morton codes (item 5).
+capacity shrink, and the Morton codes. There is one route: K3 on the
+card, its plain version on the CPU. Every curve sort takes an optional
+quantization box ``bounds=(lo, hi)`` (float32 [..., 3] each, one per scan):
+the sharded pipeline passes the global live box, so that every rank
+quantizes into the grid one device would use (``parallel/sharding.py``).
 
 Sorts here are stable; the reference's re-sorts of later passes are not,
 so the two order ties (distinct points in one curve cell) differently.
@@ -60,8 +62,10 @@ def _spread_bits_10(v: torch.Tensor) -> torch.Tensor:
     return v
 
 
-def _quantize_axes(positions, mask, origin_shift: float):
-    """Per-axis 10-bit quantization over the live bounding box.
+def _quantize_axes(positions, mask, origin_shift: float, bounds=None):
+    """Per-axis 10-bit quantization over the live bounding box, or over
+    ``bounds=(lo, hi)`` (float32 [..., 3] each, aligned with the rows of
+    ``positions``) when given.
 
     ``origin_shift`` (cells) compresses the range into [shift, 1023] so
     later passes' curve hierarchies land elsewhere. The multiply and add
@@ -73,8 +77,11 @@ def _quantize_axes(positions, mask, origin_shift: float):
     out = []
     for c in range(3):
         v = positions[..., c, :]
-        lo = torch.where(mask, v, big).amin(-1, keepdim=True)
-        hi = torch.where(mask, v, -big).amax(-1, keepdim=True)
+        if bounds is None:
+            lo = torch.where(mask, v, big).amin(-1, keepdim=True)
+            hi = torch.where(mask, v, -big).amax(-1, keepdim=True)
+        else:
+            lo, hi = bounds[0][..., c : c + 1], bounds[1][..., c : c + 1]
         scale = torch.div(
             torch.full_like(hi, 1023.0 - origin_shift), torch.clamp(hi - lo, min=1e-12)
         )
@@ -150,9 +157,10 @@ def morton_codes(positions, mask, origin_shift: float = 0.0) -> torch.Tensor:
     return torch.where(mask, code, _SENTINEL)
 
 
-def hilbert_codes(positions, mask, origin_shift: float = 0.0) -> torch.Tensor:
-    """30-bit Hilbert-curve index per point, invalid rows last."""
-    return hilbert_cell_codes(_quantize_axes(positions, mask, origin_shift), mask)
+def hilbert_codes(positions, mask, origin_shift: float = 0.0, bounds=None) -> torch.Tensor:
+    """30-bit Hilbert-curve index per point, invalid rows last; ``bounds``
+    as in ``_quantize_axes``."""
+    return hilbert_cell_codes(_quantize_axes(positions, mask, origin_shift, bounds), mask)
 
 
 def _pass_shift(pass_idx: int) -> float:
@@ -160,21 +168,33 @@ def _pass_shift(pass_idx: int) -> float:
     return float(min(128 * pass_idx, 512))
 
 
-def _curve_order(positions, mask, pass_idx: int):
+def _permute_bounds(bounds, perm):
+    """Reorder a (lo [..., 3], hi [..., 3]) bounds pair by a pass's axis
+    permutation."""
+    if bounds is None:
+        return None
+    lo, hi = bounds
+    return lo[..., list(perm)], hi[..., list(perm)]
+
+
+def _curve_order(positions, mask, pass_idx: int, bounds=None):
     """Stable curve sort for pass ``pass_idx``: (sorted codes, order), the
-    order being each sorted row's input index."""
+    order being each sorted row's input index. ``bounds`` (in the axis
+    order of ``positions``) is the quantization box, else the live box."""
     perm = _PASS_PERMS[pass_idx % len(_PASS_PERMS)]
-    codes = hilbert_codes(positions[..., list(perm), :], mask, _pass_shift(pass_idx))
+    codes = hilbert_codes(
+        positions[..., list(perm), :], mask, _pass_shift(pass_idx), _permute_bounds(bounds, perm)
+    )
     return torch.sort(codes, dim=-1, stable=True)
 
 
-def _sorted_rows(positions, mask, pass_idx: int, extra=()):
+def _sorted_rows(positions, mask, pass_idx: int, extra=(), bounds=None):
     """Stable curve sort of x/y/z (+ ``extra`` rows) for pass ``pass_idx``.
 
     Returns (sx, sy, sz, sv, *extra) in curve order; validity comes from
     the sorted code (invalid rows carry the sentinel).
     """
-    codes, order = _curve_order(positions, mask, pass_idx)
+    codes, order = _curve_order(positions, mask, pass_idx, bounds)
     return (
         *(positions[..., c, :].gather(-1, order) for c in range(3)),
         codes < _SENTINEL,
@@ -244,7 +264,7 @@ def _oct_decode(u, v):
     return x / nrm, y / nrm, z / nrm
 
 
-def _thin_sort_slice(px, py, pz, m, carry, shrink_to: int):
+def _thin_sort_slice(px, py, pz, m, carry, shrink_to: int, bounds=None):
     """The shrink's thin: a deterministic binomial thin (hash of the slot
     index) to ~``shrink_to`` live points per scan when more are live, the
     pass-0 curve sort, and a prefix slice. The entry of a non-presorted
@@ -260,7 +280,7 @@ def _thin_sort_slice(px, py, pz, m, carry, shrink_to: int):
     )
     keep = pri.to(torch.float32) < p * 2.0**32
     m = m & ((n_live <= shrink_to) | keep)
-    rows = _sorted_rows(torch.stack([px, py, pz], dim=-2), m, 0, extra=carry)
+    rows = _sorted_rows(torch.stack([px, py, pz], dim=-2), m, 0, extra=carry, bounds=bounds)
     return [r[..., :shrink_to] for r in rows]
 
 
@@ -278,7 +298,7 @@ def _wb_per_pass(window_blocks, passes: int) -> tuple:
 
 
 def _kernel_pass(positions, mask, pass_idx, k, radius, window_blocks,
-                 kmode="sweep", moments=True):
+                 kmode="sweep", moments=True, bounds=None):
     """One curve pass through K3: the reference's ``_pallas_pass``.
 
     A stable curve sort whose order is the carried index, K3, and the
@@ -286,7 +306,7 @@ def _kernel_pass(positions, mask, pass_idx, k, radius, window_blocks,
     [..., N]) in input order; count is the in-radius count (zero, like the
     entries, with ``moments=False``).
     """
-    codes, order = _curve_order(positions, mask, pass_idx)
+    codes, order = _curve_order(positions, mask, pass_idx, bounds)
     mean_s, _cnt, mom_s = window_stats(
         *(positions[..., c, :].gather(-1, order) for c in range(3)), codes < _SENTINEL,
         radius, k=k, window_blocks=window_blocks, kmode=kmode, direction=pass_idx % 2,
@@ -299,35 +319,39 @@ def _kernel_pass(positions, mask, pass_idx, k, radius, window_blocks,
 
 
 def window_mean_knn_dist(positions, mask, k: int, window_blocks: int | tuple = 2,
-                         passes: int = 2, kmode: str = "sweep") -> torch.Tensor:
+                         passes: int = 2, kmode: str = "sweep", bounds=None) -> torch.Tensor:
     """Mean distance to the k nearest window candidates (self included),
     min-merged over ``passes`` curve passes; float32[..., N] in input
-    order, 0 on masked-out rows. Backs statistical outlier removal."""
+    order, 0 on masked-out rows. Backs statistical outlier removal.
+    ``bounds``: the curve sorts' quantization box (``_quantize_axes``)."""
     wbs = _wb_per_pass(window_blocks, passes)
     # no moments, so any radius: a device zero (a host scalar's copy would
     # synchronise the stream)
     radius = torch.zeros((), dtype=torch.float32, device=positions.device)
     best = None
     for p_i in range(passes):
-        mean, _, _ = _kernel_pass(positions, mask, p_i, k, radius, wbs[p_i], kmode, moments=False)
+        mean, _, _ = _kernel_pass(
+            positions, mask, p_i, k, radius, wbs[p_i], kmode, moments=False, bounds=bounds
+        )
         best = mean if best is None else torch.minimum(best, mean)
     return _masked(best, mask)
 
 
 def window_normal_stats(positions, mask, radius, window_blocks: int | tuple = 2,
-                        passes: int = 2):
+                        passes: int = 2, bounds=None):
     """In-radius covariance entries over the curve window, per point.
 
     Returns ``(cov_entries float32[..., 6, N], count float32[..., N])`` in
     input order: entries (a00, a11, a22, a01, a02, a12) of the centered
     covariance of the in-radius candidates (self included); each point
     keeps the pass that found more of them. Count is 0 on masked-out rows.
-    Backs normal estimation and radius outlier removal.
+    Backs normal estimation and radius outlier removal. ``bounds``: the
+    curve sorts' quantization box (``_quantize_axes``).
     """
     wbs = _wb_per_pass(window_blocks, passes)
     entries = counts = None
     for p_i in range(passes):
-        _mean, e2, c2 = _kernel_pass(positions, mask, p_i, 1, radius, wbs[p_i])
+        _mean, e2, c2 = _kernel_pass(positions, mask, p_i, 1, radius, wbs[p_i], bounds=bounds)
         if entries is None:
             entries, counts = e2, c2
         else:
@@ -339,7 +363,7 @@ def window_normal_stats(positions, mask, radius, window_blocks: int | tuple = 2,
 
 def _fused_passes(positions, mask, carry, *, k, radius, window_blocks, passes,
                   kmode, shrink_to=0, radius2=None, presorted=False,
-                  entries_merge=True, carry_count=True):
+                  entries_merge=True, carry_count=True, bounds=None):
     """Sort-chained multi-pass neighbourhood: the shared core of the fused
     ops.
 
@@ -363,6 +387,8 @@ def _fused_passes(positions, mask, carry, *, k, radius, window_blocks, passes,
     passes skip the moments, and ``carry_count=False`` drops the count row
     too (the count comes back zero).
 
+    ``bounds`` is every curve sort's quantization box (``_quantize_axes``).
+
     Returns ``(sx, sy, sz, sv, carry_rows, mean, count, normals [..., 3,
     N], count2 or None)`` in the last pass's curve order.
     """
@@ -385,15 +411,15 @@ def _fused_passes(positions, mask, carry, *, k, radius, window_blocks, passes,
             live = mask.sum(-1)
             prefix = [r[..., :shrink_to] for r in rows]
             if int(live.max()) > shrink_to:  # one host read for the batch
-                thin = _thin_sort_slice(px, py, pz, mask, carry, shrink_to)
+                thin = _thin_sort_slice(px, py, pz, mask, carry, shrink_to, bounds)
                 over = (live > shrink_to)[..., None]
                 rows = [torch.where(over, t, p) for t, p in zip(thin, prefix)]
             else:
                 rows = prefix
     elif shrink_to and shrink_to < n:
-        rows = _thin_sort_slice(px, py, pz, mask, carry, shrink_to)
+        rows = _thin_sort_slice(px, py, pz, mask, carry, shrink_to, bounds)
     else:
-        rows = _sorted_rows(positions, mask, 0, extra=carry)
+        rows = _sorted_rows(positions, mask, 0, extra=carry, bounds=bounds)
     sx, sy, sz, sv, *carry = (r.contiguous() for r in rows)
 
     mean, count, ent, cnt2 = one_pass(sx, sy, sz, sv, 0, wbs[0])
@@ -410,7 +436,7 @@ def _fused_passes(positions, mask, carry, *, k, radius, window_blocks, passes,
         stats += list(ent.unbind(-2)) if entries_merge else [stat_n]
         stats += [cnt2] if use_r2 else []
         sx, sy, sz, sv, *rest = _sorted_rows(
-            torch.stack([sx, sy, sz], dim=-2), sv, p_i, extra=(*carry, *stats)
+            torch.stack([sx, sy, sz], dim=-2), sv, p_i, extra=(*carry, *stats), bounds=bounds
         )
         carry, stats = rest[: len(carry)], rest[len(carry) :]
         mean = stats.pop(0)
@@ -448,6 +474,7 @@ def fused_neighborhood_stats(
     radius2: torch.Tensor | float | None = None,
     entries_merge: bool = True,
     carry_count: bool = True,
+    bounds=None,
 ):
     """One shared neighbourhood sweep for statistical outliers and normals,
     statistics back in input order.
@@ -456,14 +483,15 @@ def fused_neighborhood_stats(
     unsort. Returns ``(mean_knn [..., N], normals [..., 3, N], count
     [..., N][, count2 [..., N]])``; mean, count and count2 are 0 on
     masked-out rows. ``count2`` (with ``radius2``) is the in-radius2
-    count, max-merged across passes.
+    count, max-merged across passes. ``bounds``: the curve sorts'
+    quantization box (``_quantize_axes``; the sharded pipeline's global box).
     """
     n = positions.shape[-1]
     idx = torch.arange(n, device=positions.device).expand(mask.shape)
     _sx, _sy, _sz, _sv, (order,), mean, count, nrm, cnt2 = _fused_passes(
         positions, mask, (idx,), k=k, radius=radius, window_blocks=window_blocks,
         passes=passes, kmode=kmode, radius2=radius2, entries_merge=entries_merge,
-        carry_count=carry_count,
+        carry_count=carry_count, bounds=bounds,
     )
     rows = (mean, count, *nrm.unbind(-2)) + ((cnt2,) if radius2 is not None else ())
     mean, count, nx, ny, nz, *rest = _unsort(order, rows)
@@ -485,6 +513,7 @@ def fused_neighborhood_stats_reordered(
     presorted: bool = False,
     entries_merge: bool = True,
     carry_count: bool = True,
+    bounds=None,
 ):
     """``fused_neighborhood_stats`` that reorders the buffer instead of
     unsorting the statistics.
@@ -496,6 +525,7 @@ def fused_neighborhood_stats_reordered(
     stage), so pass 0 needs no sort. ``shrink_to`` (multiple of 128, 0 =
     off) shrinks the buffer to that capacity. Positions [..., 3, N], mask
     [..., N] and attributes [..., N] / [..., C, N] may carry a batch axis.
+    ``bounds``: the curve sorts' quantization box (``_quantize_axes``).
 
     Returns ``(positions, mask, attrs, mean_knn, normals, count[,
     count2])``; mean, count and count2 are zero on invalid rows.
@@ -512,6 +542,7 @@ def fused_neighborhood_stats_reordered(
         positions, mask, flat, k=k, radius=radius, window_blocks=window_blocks,
         passes=passes, kmode=kmode, shrink_to=shrink_to, radius2=radius2,
         presorted=presorted, entries_merge=entries_merge, carry_count=carry_count,
+        bounds=bounds,
     )
     n_out = sx.shape[-1]
     out_attrs, i = {}, 0

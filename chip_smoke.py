@@ -138,12 +138,35 @@ preset at full width, every kernel launch counted per callback:
     PCD files (3/3/6 launches, files byte-equal to a saving node's), and
     ``cli.warmup_main --preset production_128k --buckets 131072``.
 
+The sharded pipeline (``parallel.sharding``), ranks started with
+``torch.multiprocessing`` (spawn) after the kernels are built:
+
+31. (w) ``bench_suite.py`` config 6's merged cloud (1,000,000 points at
+    1,048,576) over 4 gloo ranks sharing cuda:0, 262,144 points, a
+    102,400-row share of the post-downsample bucket and a 512-row halo a
+    rank (no pre-voxel bucket, as in the reference's local run): 3 warm-up
+    and 10 timed steps (``shard_buffer`` and the run), each checked on
+    every rank (one plane on all ranks with |n_z| > 0.99, 0 < live out <=
+    live in, unit normals) with launches 0/1/2 a step on each rank; every
+    rank's live count ahead of its shrink; K2 and K3 at rank 0's shapes
+    against their plain versions and timed; the gathered survivors against
+    the unsharded port on the card (the voxel counts ahead of the per-rank
+    caps within 15%, the survivors within 15% of the unsharded survival
+    rate applied to the voxels the caps kept, planes within 1 degree) and
+    against the same 4 ranks on the CPU with the same draws
+    (jaccard >= 0.99, >= 98% of normals within 2 degrees); the
+    production-slab keep-mask agreement at 131,072 rows (halo 0 and 512, >=
+    0.985 at 512); a world of one rank a card over NCCL bit-equal to the
+    same world over gloo. Times are rank 0's CUDA events with a barrier
+    before each step, 4 ranks time-sharing one card: not a scaling figure.
+
 With ``--profile DIR`` it also traces, with torch.profiler, 5 single scans
 and one vmapped batch of the production preset and of config 2, 5
 QUALITY scans, 5 scans of each path of phases 17-22 (3 of config 6, 1 of
 FPS and of config 7 in scene order), and (27, phase (s)) 5 revolutions of
 config 5's replay and of phase (r), and (r)'s batch of 8, 5 callbacks of
-the node and of the pipelined node, and 2 graph rounds, and writes the
+the node and of the pipelined node, 2 graph rounds, and one sharded step
+on rank 0 (``DIR/sharded/profile.txt``), and writes the
 time per operator (device and host) to ``DIR/profile.txt``, each table
 headed by its device-busy share, launches and syncs.
 
@@ -1685,6 +1708,425 @@ def node_slice(dev, production_cfg):
     return {"launches": launches, "timings": timings, "profile": profile}
 
 
+# ---- the sharded pipeline: config 6 over 4 ranks (phase (w)) --------------
+
+#: ranks sharing cuda:0 through gloo, the halo, steps
+SHARD_WORLD, SHARD_HALO = 4, 512
+SHARD_WARMUP, SHARD_TIMED = 3, 10
+#: the production-slab protocol (tests/test_parallel.py:601-643) and the
+#: backend check's step: 131,072 rows
+SLAB_CAPACITY = 131_072
+#: the outlier-only window stage: its keep-mask is the kNN-mean class
+SLAB_SETTINGS = dict(
+    remove_duplicates=False, crop_to_roi=False, voxel_downsample=False, estimate_normals=False,
+    remove_statistical_outliers=True, nb_neighbors=8, knn_method="window",
+)
+#: K1, K2, K3 launches a sharded config-6 step on each rank: no pre-voxel
+#: bucket (the reference's local run has none), one K2 launch for the 4
+#: voxel channels, both neighbourhood passes
+SHARD_LAUNCHES = (0, 1, 2)
+
+
+def slab_scene() -> np.ndarray:
+    """tests/test_parallel.py's production-slab scene at 131,072 rows: ~94%
+    fill, 80% ground over +-10 m, one object at 2 m."""
+    r = np.random.default_rng(0)
+    n = SLAB_CAPACITY - SLAB_CAPACITY // 16
+    n_ground = int(n * 0.8)
+    ground = np.column_stack([r.uniform(-10, 10, (2, n_ground)).T, r.normal(0, 0.02, n_ground)])
+    obj = r.normal([0, 0, 2.0], 0.4, (n - n_ground, 3))
+    return np.vstack([ground, obj]).astype(np.float32)
+
+
+def rank_draws(rank: int, world: int) -> np.ndarray:
+    """Rank ``rank``'s RANSAC draws, [64 // world, 3]: the same on the card
+    and on the CPU."""
+    return np.random.default_rng(60 + rank).uniform(size=(64 // world, 3)).astype(np.float32)
+
+
+class ShardRank:
+    """One rank of a phase-(w) world: its device, mesh and outputs."""
+
+    def __init__(self, rank, world, device, out_dir):
+        from autodriver_pointcloud_preprocessor_tpu_torch.parallel import sharding as sh
+
+        self.sh, self.rank, self.world, self.out_dir = sh, rank, world, out_dir
+        self.dev = torch.device(device)
+        self.mesh = sh.make_mesh()
+        self.group = self.mesh.get_group("point")
+        self.info, self.arrays = {"rank": rank}, {}
+
+    def gathered(self, t: torch.Tensor) -> np.ndarray:
+        """Every rank's ``t`` on a leading rank axis (bool travels as int32)."""
+        parts = self.sh._all_gather(t.to(torch.int32) if t.dtype == torch.bool else t, self.group)
+        return torch.stack(parts).cpu().numpy()
+
+    def save_output(self, tag, local, plane):
+        """Rank 0 keeps the gathered buffer and the plane of ``tag``."""
+        full = self.sh.unshard_buffer(local, self.mesh)
+        if self.rank == 0:
+            self.arrays.update({
+                f"{tag}_pos": full.positions.cpu().numpy(), f"{tag}_mask": full.mask.cpu().numpy(),
+                f"{tag}_plane": plane.cpu().numpy()})
+            if "normals" in full.attributes:
+                self.arrays[f"{tag}_normals"] = full.attributes["normals"].cpu().numpy()
+
+    def write(self):
+        import os
+
+        with open(os.path.join(self.out_dir, f"rank{self.rank}.json"), "w") as f:
+            json.dump(self.info, f)
+        if self.rank == 0:
+            np.savez(os.path.join(self.out_dir, "rank0.npz"), **self.arrays)
+
+
+def config6_step_inputs(r: ShardRank):
+    """The replicated config-6 input on ``r``'s device, settings, params and
+    the rank's draws."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.core import from_soa
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import (
+        PipelineParams, PipelineSettings,
+    )
+
+    buf, _ = from_soa({"positions": scene(CONFIG6_POINTS)}, capacity=CONFIG6_CAPACITY, device=r.dev)
+    settings = PipelineSettings(**CONFIG6_SETTINGS)
+    params = PipelineParams.make(**CONFIG6_PARAMS, device=r.dev)
+    draws = torch.from_numpy(rank_draws(r.rank, r.world)).to(r.dev)
+    return buf, settings, params, draws
+
+
+def shard_job_card(r: ShardRank, profile_dir=None):
+    """Config 6 over the world on cuda:0: warm-up and timed steps with every
+    check, the live counts ahead of the shrink, K2 and K3 at their sharded
+    shapes against their plain versions and timed (rank 0), the
+    production-slab agreement, and with ``profile_dir`` one traced step."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import (
+        PipelineParams, PipelineSettings, build_pipeline,
+    )
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops import _build
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops import voxel as voxel_mod
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops import window as window_mod
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops.segmean import (
+        run_ids, segmented_sums, segmented_sums_plain,
+    )
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops.window_stats import (
+        window_stats, window_stats_plain,
+    )
+
+    sh = r.sh
+    buf, settings, params, draws = config6_step_inputs(r)
+    run = sh.build_sharded_pipeline(settings, r.mesh, "point", SHARD_HALO)
+
+    def step():
+        out, plane = run(sh.shard_buffer(buf, r.mesh), params, None, draws)
+        return out, plane
+
+    times, steps = [], SHARD_WARMUP + SHARD_TIMED
+    coll = []
+    _build.reset_launches()
+    for i in range(steps):
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        sh.reset_collectives()
+        start.record()
+        local = sh.shard_buffer(buf, r.mesh)
+        out, plane = run(local, params, None, draws)
+        end.record()
+        torch.cuda.synchronize()
+        coll.append(dict(sh.COLLECTIVES))
+        if i >= SHARD_WARMUP:
+            times.append(start.elapsed_time(end))
+        live_in, live_out = int(local.mask.sum()), int(out.mask.sum())
+        check(0 < live_out <= live_in, f"(w) rank {r.rank} step {i}: {live_out} live of {live_in}")
+        planes = r.gathered(plane)
+        check(bool((planes == planes[0]).all()) and abs(float(planes[0][2])) > 0.99,
+              f"(w) rank {r.rank} step {i}: planes {planes.tolist()}")
+        lens = out.attributes["normals"].norm(dim=0)[out.mask]
+        check(bool(((lens - 1.0).abs() < 1e-3).all()), f"(w) rank {r.rank} step {i}: normals not unit")
+    launches = tuple(_build.LAUNCHES[k] for k in KERNELS)
+    want = tuple(steps * c for c in SHARD_LAUNCHES)
+    check(launches == want, f"(w) rank {r.rank}: launches {launches} in {steps} steps, expected {want}")
+    r.info.update(times=times, launches=launches, collectives=coll[-1], live_in=live_in,
+                  live_out=live_out, capacity_out=out.capacity)
+    r.save_output("config6", out, plane)
+
+    # the live count ahead of the shrink, stage by stage, with K2's and
+    # K3's inputs recorded on the way
+    seen = {"k2": [], "k3": []}
+    real_k2, real_k3 = voxel_mod.segmented_sums, window_mod.window_stats
+
+    def spy_k2(values, flags):
+        seen["k2"].append((values, flags))
+        return real_k2(values, flags)
+
+    def spy_k3(*rows, **kw):
+        seen["k3"].append((rows, kw))
+        return real_k3(*rows, **kw)
+
+    voxel_mod.segmented_sums, window_mod.window_stats = spy_k2, spy_k3
+    try:
+        b = sh.shard_buffer(buf, r.mesh)
+        for name, fn in sh._local_stages(settings, sh._Axis.of(r.mesh, "point"), SHARD_HALO):
+            if name == "shrink":
+                r.info["pre_shrink_live"] = int(b.mask.sum())
+            b, _ = fn(b, params, None, draws, None)
+    finally:
+        voxel_mod.segmented_sums, window_mod.window_stats = real_k2, real_k3
+    share = -(-settings.post_downsample_capacity // r.world)
+    share = -(-share // 512) * 512
+    r.info.update(share=share, cap_engaged=r.info["pre_shrink_live"] > share)
+    check(len(seen["k2"]) == 1 and len(seen["k3"]) == 2,
+          f"(w) rank {r.rank}: {len(seen['k2'])} K2 and {len(seen['k3'])} K3 calls in a step")
+
+    if r.rank == 0:  # K2 and K3 at this rank's shapes: kernel, plain, library, bound
+        vals, flags = seen["k2"][0]
+        got = segmented_sums(vals, flags).cpu()
+        ref = segmented_sums_plain(vals.cpu(), flags.cpu())
+        check(torch.equal(bits(got), bits(ref)), "(w) K2 at the sharded shapes is not bit-equal to plain")
+        km, pm = interleaved_ms(lambda: segmented_sums(vals, flags),
+                                lambda: segmented_sums_plain(vals, flags), reps=10)
+        n2 = vals.shape[-1]
+        ids = run_ids(flags)
+        lib = event_ms(lambda: torch.zeros_like(vals).index_add_(1, ids, vals), 10)
+        bms, by = bound(*k2_work(vals, flags))
+        r.info["k2"] = dict(ms=km, plain_ms=pm, library_ms=lib, bound_ms=bms, bound_by=by,
+                            max_abs_err=float((got - ref).abs().max()),
+                            shapes=f"{vals.shape[0]} x {n2}")
+        k3_km = k3_pm = nbytes = flops = err = 0.0
+        shapes = []
+        for p, (rows, kw) in enumerate(seen["k3"]):
+            xyzv, radius = rows[:4], rows[4]
+            kw = {k: v for k, v in kw.items() if k != "radius2" or v is not None}
+            err = max(err, check_k3_plain(f"sharded pass {p}", window_stats(*xyzv, radius, **kw),
+                                          xyzv, kw, radius))
+            r2 = (radius ** 2).reshape(1)
+            km, pm = interleaved_ms(
+                lambda: window_stats(*xyzv, radius, **kw),
+                lambda: window_stats_plain(*xyzv, r2, kw["k"], kw["window_blocks"], kw["kmode"],
+                                           kw["direction"], kw["moments"]),
+                reps=3)
+            mom0 = window_stats(*xyzv, radius, **kw)[2][0]
+            bb, ff = k3_work(xyzv, kw["k"], kw["window_blocks"], kw["direction"], kw["moments"], mom0,
+                             kmode=kw["kmode"])
+            nbytes, flops, k3_km, k3_pm = nbytes + bb, flops + ff, k3_km + km, k3_pm + pm
+            shapes.append(f"{xyzv[0].shape[-1]} rows wb={kw['window_blocks']} {kw['kmode']} "
+                          f"direction {kw['direction']}")
+        bms, by = bound(nbytes, flops)
+        r.info["k3"] = dict(ms=k3_km, plain_ms=k3_pm, library_ms=None, bound_ms=bms, bound_by=by,
+                            max_abs_err=err, shapes=", ".join(shapes))
+    torch.distributed.barrier()
+
+    if profile_dir:  # one traced step on rank 0 (every rank runs it)
+        import os
+
+        if r.rank == 0:
+            profile_runs([("sharded config 6: 1 step, rank 0 of 4", step)], r.dev,
+                         os.path.join(profile_dir, "sharded"))
+        else:
+            step()
+            torch.cuda.synchronize()
+
+    # the production-slab protocol: keep-masks against the unsharded
+    # port's in the same (spatially sorted) frame
+    from autodriver_pointcloud_preprocessor_tpu_torch.core import from_soa
+
+    sbuf, _ = from_soa({"positions": slab_scene()}, capacity=SLAB_CAPACITY, device=r.dev)
+    ssettings = PipelineSettings(**SLAB_SETTINGS)
+    sparams = PipelineParams.make(std_ratio=1.0, device=r.dev)
+    masks = {}
+    for halo in (0, SHARD_HALO):
+        srun = sh.build_sharded_pipeline(ssettings, r.mesh, "point", halo)
+        masks[halo] = sh.unshard_buffer(srun(sh.shard_buffer(sbuf, r.mesh), sparams)[0], r.mesh).mask
+    if r.rank == 0:
+        sorted_buf = sh.spatial_sort(sbuf)
+        single = build_pipeline(ssettings)(sorted_buf, sparams, None)[0].mask
+        live = sorted_buf.mask
+        r.info["slab_agree"] = {h: float((single == m)[live].float().mean()) for h, m in masks.items()}
+
+
+def shard_job_cpu(r: ShardRank, profile_dir=None):
+    """One config-6 step with the same draws on CPU ranks (plain versions)."""
+    buf, settings, params, draws = config6_step_inputs(r)
+    run = r.sh.build_sharded_pipeline(settings, r.mesh, "point", SHARD_HALO)
+    out, plane = run(r.sh.shard_buffer(buf, r.mesh), params, None, draws)
+    r.save_output("config6", out, plane)
+
+
+def shard_job_backend(r: ShardRank, profile_dir=None):
+    """Config 6's settings on the 131,072-row slab scene, one rank a card,
+    fixed draws: the step the NCCL and gloo worlds both run."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.core import from_soa
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import (
+        PipelineParams, PipelineSettings,
+    )
+
+    buf, _ = from_soa({"positions": slab_scene()}, capacity=SLAB_CAPACITY, device=r.dev)
+    run = r.sh.build_sharded_pipeline(PipelineSettings(**CONFIG6_SETTINGS), r.mesh, "point",
+                                      SHARD_HALO)
+    params = PipelineParams.make(**CONFIG6_PARAMS, device=r.dev)
+    draws = torch.from_numpy(rank_draws(r.rank, r.world)).to(r.dev)
+    out, plane = run(r.sh.shard_buffer(buf, r.mesh), params, None, draws)
+    r.info["backend"] = torch.distributed.get_backend()
+    r.save_output("slab", out, plane)
+
+
+SHARD_JOBS = {"card": shard_job_card, "cpu": shard_job_cpu, "backend": shard_job_backend}
+
+
+def shard_rank(rank, world, backend, device, store, out_dir, job, profile_dir):
+    """Entry of one spawned rank: joins the world over ``backend`` (a
+    ``file://`` store), runs ``SHARD_JOBS[job]`` on ``device`` ('{rank}'
+    is the rank) and writes its outputs to ``out_dir``. A failed check
+    exits non-zero, which fails the parent's join."""
+    import datetime
+
+    device = device.format(rank=rank)
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(2)
+    torch.distributed.init_process_group(backend, init_method=f"file://{store}", rank=rank,
+                                         world_size=world, timeout=datetime.timedelta(seconds=600))
+    try:
+        r = ShardRank(rank, world, device, out_dir)
+        SHARD_JOBS[job](r, profile_dir)
+        r.write()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_world(job, world, backend, device, profile_dir=None):
+    """Runs ``job`` on ``world`` spawned ranks; returns (every rank's info,
+    rank 0's arrays, seconds). Any rank's failure raises here."""
+    import os
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(shard_rank, args=(world, backend, device, os.path.join(tmp, "store"), tmp,
+                                             job, profile_dir),
+                           nprocs=world, join=True, start_method="spawn")
+        infos = []
+        for rank in range(world):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                infos.append(json.load(f))
+        with np.load(os.path.join(tmp, "rank0.npz")) as z:
+            arrays = {k: z[k] for k in z.files}
+    return infos, arrays, time.perf_counter() - t0
+
+
+def sharded_slice(dev, profile_dir=None):
+    """Phase 31 (w): config 6's merged cloud over 4 ranks (see the module
+    docstring). Returns the path's launches, K2's and K3's numbers at the
+    sharded shapes, and the timings."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.core import from_soa
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import (
+        PipelineParams, PipelineSettings, build_pipeline, stage_functions,
+    )
+
+    label = f"{SHARD_WORLD} ranks time-sharing one H100 through gloo"
+    print(f"[chip_smoke] (w) config 6 sharded: {CONFIG6_POINTS:,} points at {CONFIG6_CAPACITY:,}, "
+          f"{SHARD_WORLD} gloo ranks on cuda:0, {CONFIG6_CAPACITY // SHARD_WORLD:,} points a rank, "
+          f"halo {SHARD_HALO}; pre_voxel_compact_capacity ignored (the reference's sharded local "
+          f"run has no pre-voxel stage)")
+    infos, arrays, secs = spawn_world("card", SHARD_WORLD, "gloo", "cuda:0", profile_dir)
+    steps = SHARD_WARMUP + SHARD_TIMED
+    times = infos[0]["times"]
+    p50, p90 = float(np.median(times)), float(np.percentile(times, 90))
+    for info in infos:
+        print(f"[chip_smoke] (w) rank {info['rank']}: launches {info['launches']} in {steps} steps "
+              f"({SHARD_LAUNCHES} a step), live {info['live_in']} in -> {info['pre_shrink_live']} "
+              f"ahead of the shrink (share {info['share']}, cap engaged: {info['cap_engaged']}) -> "
+              f"{info['live_out']} survivors of {info['capacity_out']} rows")
+    coll = infos[0]["collectives"]
+    print(f"[chip_smoke] (w) a step: {coll['calls']} collectives, {coll['bytes']} bytes put in by "
+          f"each rank (rank 0's count)")
+    print(f"[chip_smoke] (w) p50 {p50:.3f} ms a step, p90 {float(p90):.3f} (rank 0's CUDA events, "
+          f"barrier before each, shard_buffer + run; {label}: not a scaling figure); "
+          f"all {[round(t, 3) for t in times]}; world took {secs:.1f} s")
+    agree = infos[0]["slab_agree"]
+    print(f"[chip_smoke] (w) production slabs ({SLAB_CAPACITY:,} rows, {SHARD_WORLD} slabs of "
+          f"{SLAB_CAPACITY // SHARD_WORLD:,}): keep-mask agreement with the unsharded port "
+          f"{json.dumps(agree)} (halo 0 / {SHARD_HALO})")
+    check(agree[str(SHARD_HALO)] >= 0.985, f"(w) slab agreement {agree} < 0.985 at halo {SHARD_HALO}")
+
+    # against the unsharded port on the card (its own draws). A rank whose
+    # voxels overflow its share keeps an unbiased subset of them (the
+    # reference's documented per-shard cap; one device's bucket holds
+    # them all): the voxel counts ahead of the shrink, and the survivors
+    # against the unsharded survival rate applied to the voxels the caps
+    # kept, agree within 15%; the planes within 1 degree
+    settings6 = PipelineSettings(**CONFIG6_SETTINGS)
+    params6 = PipelineParams.make(**CONFIG6_PARAMS, device=dev)
+    u6 = torch.from_numpy(np.random.default_rng(6).uniform(
+        size=(settings6.num_iterations, settings6.ransac_n)).astype(np.float32)).to(dev)
+    buf6, _ = from_soa({"positions": scene(CONFIG6_POINTS)}, capacity=CONFIG6_CAPACITY, device=dev)
+    single, splane = build_pipeline(settings6)(buf6, params6, None, u6)
+    b = buf6
+    for name, fn in stage_functions(settings6):
+        b, _ = fn(b, params6, None, u6, None)
+        if name == "voxel":
+            break
+    voxels_single = int(b.mask.sum())
+    voxels = sum(i["pre_shrink_live"] for i in infos)
+    kept = sum(min(i["pre_shrink_live"], i["share"]) for i in infos)
+    ns, nm = int(single.mask.sum()), int(arrays["config6_mask"].sum())
+    expected = ns * kept / voxels
+    ps, pm = splane.cpu().numpy(), arrays["config6_plane"]
+    angle = float(np.degrees(np.arccos(min(abs(float(np.dot(ps[:3], pm[:3]))), 1.0))))
+    print(f"[chip_smoke] (w) sharded vs unsharded port on the card: voxels {voxels} vs "
+          f"{voxels_single} ({abs(voxels - voxels_single) / voxels_single:.4f} apart), {kept} kept "
+          f"by the per-rank caps; survivors {nm} vs {ns} ({abs(ns - nm) / ns:.4f} apart), "
+          f"{expected:.0f} expected from the caps ({abs(nm - expected) / expected:.4f} apart); "
+          f"planes {angle:.4f} degrees apart")
+    check(abs(voxels - voxels_single) / voxels_single < 0.15,
+          f"(w) sharded voxels {voxels} vs unsharded {voxels_single}: > 15% apart")
+    check(abs(nm - expected) / expected < 0.15,
+          f"(w) sharded survivors {nm} vs {expected:.0f} expected from the caps: > 15% apart")
+    check(angle <= 1.0, f"(w) sharded plane {pm} vs unsharded {ps}: {angle:.3f} degrees")
+
+    # the same 4-rank step on CPU ranks with the same draws
+    _, cpu, cpu_secs = spawn_world("cpu", SHARD_WORLD, "gloo", "cpu")
+
+    def survivors(a):
+        m = a["config6_mask"]
+        return survivor_normals({"positions": a["config6_pos"][:, m].T,
+                                 "normals": a["config6_normals"][:, m].T})
+
+    a, c = survivors(arrays), survivors(cpu)
+    common = a.keys() & c.keys()
+    j = len(common) / max(len(a.keys() | c.keys()), 1)
+    cos = np.array([abs(float(np.dot(a[p], c[p]))) for p in common])
+    normals_ok = float((cos >= np.cos(np.deg2rad(2.0))).mean()) if len(cos) else 0.0
+    print(f"[chip_smoke] (w) card vs CPU ranks: survivors {len(a)} vs {len(c)}, jaccard {j:.5f}, "
+          f"normals within 2 deg {normals_ok:.5f} (CPU world {cpu_secs:.1f} s)")
+    check(j >= 0.99, f"(w) card vs CPU jaccard {j:.5f} < 0.99")
+    check(normals_ok >= 0.98, f"(w) card vs CPU: only {normals_ok:.5f} of normals within 2 deg")
+
+    # NCCL against gloo: a world of one rank a card, the same step
+    n_cards = torch.cuda.device_count()
+    worlds = {b: spawn_world("backend", n_cards, b, "cuda:{rank}") for b in ("nccl", "gloo")}
+    (ni, na, nsec), (gi, ga, gsec) = worlds["nccl"], worlds["gloo"]
+    check(ni[0]["backend"] == "nccl" and gi[0]["backend"] == "gloo", "(w) backends")
+    same = all(np.array_equal(na[k].view(np.int32) if na[k].dtype == np.float32 else na[k],
+                              ga[k].view(np.int32) if ga[k].dtype == np.float32 else ga[k])
+               for k in na)
+    print(f"[chip_smoke] (w) NCCL world of {n_cards} vs gloo world of {n_cards} on the "
+          f"{SLAB_CAPACITY:,}-row step: bit-equal {same}, survivors {int(na['slab_mask'].sum())} "
+          f"({nsec:.1f} s and {gsec:.1f} s)")
+    if n_cards == 1:
+        check(same, "(w) the NCCL world's output differs from the gloo world's")
+    return {
+        "launches": {"sharded": dict(zip(KERNELS, (sum(i["launches"][k] for i in infos)
+                                                   for k in range(len(KERNELS)))))},
+        "timings": {"sharded": {"p50_ms": p50, "p90_ms": p90, "steps": len(times), "label": label}},
+        "kernels": {"segmented_sums": infos[0]["k2"], "window_stats": infos[0]["k3"]},
+        "collectives": coll,
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
@@ -2072,6 +2514,10 @@ def main() -> None:
     # ---- the node layer: the node, the three-sensor graph, the CLI -------
     slice6 = node_slice(dev, cfg)
 
+    # ---- the sharded pipeline: config 6 over 4 ranks ---------------------
+    profile_dir = sys.argv[sys.argv.index("--profile") + 1] if "--profile" in sys.argv else None
+    slice7 = sharded_slice(dev, profile_dir)
+
     if "--profile" in sys.argv:
         def single():
             for _ in range(5):
@@ -2092,7 +2538,8 @@ def main() -> None:
     # config 2's shapes ride beside
     paths = {"production_single": single_launches,
              **{f"production_{m}": v for m, v in batch_launches.items()},
-             **slice3["launches"], **slice4["launches"], **slice5["launches"], **slice6["launches"]}
+             **slice3["launches"], **slice4["launches"], **slice5["launches"], **slice6["launches"],
+             **slice7["launches"]}
     for name, counts in paths.items():
         # config 3 (RANSAC alone) runs no kernel; drive() checked its zeros
         check(name == "config3" or any(counts.values()), f"path {name} launched no kernel")
@@ -2121,6 +2568,8 @@ def main() -> None:
                             "max_abs_err": slice4["err_config6"][k], "ms": ckm, "plain_ms": cpm,
                             "bound_ms": cbms, "bound_by": cby, "library_ms": clib,
                             "shapes": CONFIG6_SHAPES[k]}
+        if k in slice7["kernels"]:
+            entry["sharded"] = dict(slice7["kernels"][k], launches=slice7["launches"]["sharded"][k])
         if k == "window_stats":
             entry["modes_run"] = ["csel", "sweep", "bisect", "moments", "radius2"]
             entry["config2"] = dict(slice3["k3_config2"],
@@ -2130,6 +2579,8 @@ def main() -> None:
     print(f"[chip_smoke] streaming ms/revolution: {json.dumps(slice5['timings'])}")
     print(f"[chip_smoke] streaming decode and quantizer ops: {json.dumps(slice5['ops'])}")
     print(f"[chip_smoke] node layer ms: {json.dumps(slice6['timings'])}")
+    print(f"[chip_smoke] sharded ms/step: {json.dumps(slice7['timings'])}, collectives a step "
+          f"{json.dumps(slice7['collectives'])}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -731,3 +731,91 @@ def test_node_with_use_gpu_false_runs_on_the_card(cuda):
     torch.cuda.synchronize()
     assert node.frame_count == 1 and len(outs) == 1
     assert tuple(_build.LAUNCHES[k] for k in chip_smoke.KERNELS) == (1, 1, 2)
+
+
+#: the sharded path's knobs: ``__graft_entry__._full_settings()``
+SHARDED_SETTINGS = dict(
+    remove_statistical_outliers=True, nb_neighbors=16, estimate_normals=True, max_neighbors=16,
+    remove_ground=True, ransac_n=3, num_iterations=64, knn_method="window",
+    ground_before_voxel=True, voxel_compact_keys=True, knn_kmode="csel", window_blocks=(1, 0),
+    normals_merge_passes=False,
+)
+
+
+def _sharded_rank(rank, world, store, out, device):
+    """One gloo rank of ``test_sharded_gloo_ranks_on_card_match_cpu``: the
+    sharded pipeline on its slab of a 16,000-point scene at capacity
+    16,384, its own RANSAC draws; rank 0 writes the gathered output and
+    every rank's launches to ``out``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import (
+        PipelineParams, PipelineSettings,
+    )
+    from autodriver_pointcloud_preprocessor_tpu_torch.parallel import sharding as sh
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        rng = _rng(16)
+        ground = np.column_stack([rng.uniform(-15, 15, (2, 10_000)).T, rng.normal(0, 0.03, 10_000)])
+        obj = rng.uniform(-12, 12, (6000, 3)) * [1, 1, 0.1] + [0, 0, 1.5] + rng.normal(0, 0.3, (6000, 3))
+        buf, _ = from_soa({"positions": np.vstack([ground, obj]).astype(np.float32)},
+                          capacity=16384, device=device)
+        params = PipelineParams.make(voxel_size=0.1, distance_threshold=0.1, search_radius=0.5,
+                                     device=device)
+        mesh = sh.make_mesh()
+        draws = torch.from_numpy(_rng(20 + rank).uniform(size=(64 // world, 3)).astype(np.float32))
+        run = sh.build_sharded_pipeline(PipelineSettings(**SHARDED_SETTINGS), mesh)
+        local = sh.shard_buffer(buf, mesh)
+        _build.reset_launches()
+        local, plane = run(local, params, None, draws.to(device))
+        launches = torch.tensor([_build.LAUNCHES[k] for k in
+                                 ("masked_compact", "segmented_sums", "window_stats")])
+        launches = torch.stack(sh._all_gather(launches, mesh.get_group("point")))
+        full = sh.unshard_buffer(local, mesh)
+        if rank == 0:
+            np.savez(out, pos=full.positions.cpu().numpy(), mask=full.mask.cpu().numpy(),
+                     normals=full.attributes["normals"].cpu().numpy(), plane=plane.cpu().numpy(),
+                     launches=launches.numpy(), device=str(plane.device))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_gloo_ranks_on_card_match_cpu(cuda, tmp_path):
+    """2 gloo ranks on cuda:0 against the same 2 ranks on the CPU with the
+    same draws, 16,384 points: each card rank launches K2 once and K3
+    twice (no K1: the sharded run has no pre-voxel bucket), survivors by
+    jaccard >= 0.99, >= 98% of common normals within 2 degrees."""
+    import torch.multiprocessing as mp
+
+    import chip_smoke
+
+    _build.load_library()  # built once here, loaded by the ranks
+    outs = {}
+    for device in ("cuda", "cpu"):
+        out = tmp_path / f"{device}.npz"
+        mp.start_processes(_sharded_rank, args=(2, str(tmp_path / f"store_{device}"), str(out), device),
+                           nprocs=2, join=True, start_method="spawn")
+        with np.load(out) as z:
+            outs[device] = {k: z[k] for k in z.files}
+    card, cpu = outs["cuda"], outs["cpu"]
+    assert str(card["device"]) == "cuda:0" and str(cpu["device"]) == "cpu"
+    assert card["launches"].tolist() == [[0, 1, 2]] * 2
+    assert cpu["launches"].tolist() == [[0, 0, 0]] * 2
+    assert abs(card["plane"][2]) > 0.99
+    np.testing.assert_allclose(card["plane"], cpu["plane"], atol=1e-4)
+
+    def survivors(o):
+        m = o["mask"]
+        return chip_smoke.survivor_normals({"positions": o["pos"][:, m].T, "normals": o["normals"][:, m].T})
+
+    a, c = survivors(card), survivors(cpu)
+    common = a.keys() & c.keys()
+    assert len(common) > 1000
+    assert len(common) / len(a.keys() | c.keys()) >= 0.99
+    cos = np.array([abs(float(np.dot(a[p], c[p]))) for p in common])
+    assert float((cos >= np.cos(np.deg2rad(2.0))).mean()) >= 0.98

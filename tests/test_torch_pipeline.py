@@ -293,7 +293,7 @@ def test_unported_settings_raise(pallas_interpret, override):
     cfg = {**CFG, **override}
     port_settings = pipeline.settings_from_config(cfg)
     if "pallas_ok" in override:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+        with pytest.raises(NotImplementedError, match="XLA window fallback"):
             pipeline.stage_functions(dataclasses.replace(port_settings, **override))
         return
     settings = ref_pipeline.settings_from_config(cfg)
@@ -363,6 +363,7 @@ def test_port_imports_without_jax():
         "import autodriver_pointcloud_preprocessor_tpu_torch.runtime.params\n"
         "import autodriver_pointcloud_preprocessor_tpu_torch.parallel\n"
         "import autodriver_pointcloud_preprocessor_tpu_torch.parallel.concat\n"
+        "import autodriver_pointcloud_preprocessor_tpu_torch.parallel.sharding\n"
         "import autodriver_pointcloud_preprocessor_tpu_torch.cli\n"
         "import autodriver_pointcloud_preprocessor_tpu_torch.native\n"
         "import chip_smoke\n"
