@@ -383,7 +383,9 @@ class PointcloudCompressorNode:
 
 def device_quantizer(qbits: int):
     """``quantize(buf, intensity_scale=1.0) -> (packed int16 rows, meta
-    float32[7])`` on the buffer's device.
+    float32[7])`` on the buffer's device. ``intensity_scale`` is a float or
+    a float32 scalar tensor on that device (a captured program takes the
+    tensor: a float would be frozen into the graph).
 
     Runs the codec's lossy step on the device and emits int16, so only
     ~8 bytes a point leave it. Output columns are compacted (live points

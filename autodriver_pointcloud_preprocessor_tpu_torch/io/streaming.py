@@ -9,10 +9,17 @@ Port of the reference's ``io/streaming.py``. Per revolution:
 The host only restructures packet bytes with numpy strided views, runs
 the final entropy stage (native sidecar), and splits revolutions by
 peeking block azimuths (24 of 1206 bytes per packet). The packet fields,
-the packet times and the packet count of a revolution (or of a batch of
-them) travel in one pinned host buffer; the quantized rows come back into
-pinned buffers behind an event, so ``replay_pcap`` dispatches revolution
-N+1 before it pulls and entropy-codes revolution N.
+the packet times, the packet count of a revolution (or of a batch of
+them) and the intensity scale travel in one pinned host buffer; the
+quantized rows come back into pinned buffers behind an event, so
+``replay_pcap`` dispatches revolution N+1 before it pulls and
+entropy-codes revolution N.
+
+On a CUDA card decode, pipeline and quantizer run as one captured program
+for each (packet bucket, batch) (``models/graphs.py``; the reference's one
+``jit`` of the three), with the generator's draws taken ahead
+(``pipeline.draw_uniforms``). The copy of its outputs to the host follows
+the replay on the same stream, before the next replay can overwrite them.
 
 The decode and the quantizer's arithmetic are plain PyTorch operations
 (the reference computes them as XLA elementwise operations outside any
@@ -27,10 +34,12 @@ import numpy as np
 import torch
 
 from ..core.scan import ScanBuffer, resolve_device
+from ..models import graphs
 from ..models.pipeline import (
     PipelineParams,
     PipelineSettings,
     build_pipeline,
+    draw_uniforms,
     params_from_config,
     settings_from_config,
 )
@@ -141,6 +150,19 @@ def decode_fields(
     )
 
 
+def _revolution_body(run, quantize, model: str, tables, ranges: torch.Tensor):
+    """``body(fields, stamp_off, n_packets, intensity_scale, params, draws)
+    -> (packed, meta)``: decode, pipeline and quantizer, one revolution or
+    a batch (the function a streaming program captures)."""
+
+    def body(fields, stamp_off, n_packets, intensity_scale, params, draws):
+        buf = decode_fields(fields, stamp_off, n_packets, ranges[0], ranges[1], model, tables)
+        buf, _plane = run(buf, params, None, *draws)
+        return quantize(buf, intensity_scale)
+
+    return body
+
+
 class StreamingEngine:
     """PCAP/UDP packets -> preprocessed, compressed clouds, on the device.
 
@@ -179,27 +201,29 @@ class StreamingEngine:
         self.settings: PipelineSettings = settings_from_config(self.config)
         self.params: PipelineParams = params_from_config(self.config, device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self._run = build_pipeline(self.settings)
-        self._quantize = device_quantizer(quantization_bits)
-        self._tables = _laser_tables(model, self.device)
-        self._ranges = torch.tensor([min_range, max_range], dtype=torch.float32,
-                                    device=self.device)
+        self._body = _revolution_body(
+            build_pipeline(self.settings), device_quantizer(quantization_bits), model,
+            _laser_tables(model, self.device),
+            torch.tensor([min_range, max_range], dtype=torch.float32, device=self.device),
+        )
         self._pinned = self.device.type == "cuda"
 
     # -- host <-> device ----------------------------------------------------
 
-    def _pack(self, scans: Sequence[Tuple[np.ndarray, np.ndarray]]):
+    def _pack(self, scans: Sequence[Tuple[np.ndarray, np.ndarray]], intensity_scale: float):
         """Revolutions -> one host byte buffer: field matrices (B, 1176, P),
-        packet times float32 (B, P) and packet counts int32 (B,), each
-        revolution cut to ``packet_bucket`` packets and zero-padded."""
+        packet times float32 (B, P), packet counts int32 (B,) and the
+        intensity scale float32, each revolution cut to ``packet_bucket``
+        packets and zero-padded."""
         b, pb = len(scans), self.packet_bucket
-        sizes = (b * _FIELD_ROWS * pb, b * pb * 4, b * 4)
+        sizes = (b * _FIELD_ROWS * pb, b * pb * 4, b * 4, 4)
         host = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=self._pinned)
         raw = host.numpy()
         raw[:] = 0
         fields = raw[: sizes[0]].reshape(b, _FIELD_ROWS, pb)
         stamp_off = raw[sizes[0] : sizes[0] + sizes[1]].view(np.float32).reshape(b, pb)
-        n_packets = raw[sizes[0] + sizes[1] :].view(np.int32)
+        n_packets = raw[sizes[0] + sizes[1] : sum(sizes[:3])].view(np.int32)
+        raw[sum(sizes[:3]) :].view(np.float32)[0] = intensity_scale
         for i, (payloads, stamps) in enumerate(scans):
             p = min(payloads.shape[0], pb)
             fields[i, :, :p] = _split_packet_fields(payloads[:p])
@@ -209,15 +233,17 @@ class StreamingEngine:
         return host, sizes
 
     def _upload(self, host: torch.Tensor, sizes, batch: bool):
-        """One copy of the packed buffer to the device, then views of it."""
+        """One copy of the packed buffer to the device, then views of it:
+        (fields, stamp_off, n_packets, intensity scale float32[])."""
         dev = host.to(self.device, non_blocking=True)
         b, pb = sizes[2] // 4, self.packet_bucket
         fields = dev[: sizes[0]].view(b, _FIELD_ROWS, pb)
         stamp_off = dev[sizes[0] : sizes[0] + sizes[1]].view(torch.float32).view(b, pb)
-        n_packets = dev[sizes[0] + sizes[1] :].view(torch.int32)
+        n_packets = dev[sizes[0] + sizes[1] : sum(sizes[:3])].view(torch.int32)
+        scale = dev[sum(sizes[:3]) :].view(torch.float32)[0]
         if not batch:
-            return fields[0], stamp_off[0], n_packets[0]
-        return fields, stamp_off, n_packets
+            return fields[0], stamp_off[0], n_packets[0], scale
+        return fields, stamp_off, n_packets, scale
 
     def _pull(self, packed: torch.Tensor, meta: torch.Tensor):
         """Start the copy of the quantized rows to the host; the returned
@@ -234,11 +260,17 @@ class StreamingEngine:
 
     # -- per-scan -----------------------------------------------------------
 
-    def _device_run(self, fields, stamp_off, n_packets, intensity_scale, ground_uniforms):
-        buf = decode_fields(fields, stamp_off, n_packets, self._ranges[0], self._ranges[1],
-                            self.model, self._tables)
-        buf, _plane = self._run(buf, self.params, self.generator, ground_uniforms)
-        return self._quantize(buf, intensity_scale)
+    def _device_run(self, fields, stamp_off, n_packets, scale, ground_uniforms):
+        """Decode, pipeline and quantizer on the uploaded views: one replay
+        on a card (its own output tensors, pulled before the next replay),
+        eager on the CPU."""
+        draws = draw_uniforms(self.settings, n_packets.shape, _SLOTS * fields.shape[-1],
+                              self.generator, self.device, ground_uniforms)
+        args = (fields, stamp_off, n_packets, scale, self.params, draws)
+        if not graphs.captures(self.device):
+            return self._body(*args)
+        tag = ("stream", self.settings, self.model, self.qbits, self.min_range, self.max_range)
+        return graphs.program(tag, lambda: self._body, *args)(*args, clone=False)
 
     def _dispatch_scan(
         self, payloads: np.ndarray, stamps: np.ndarray,
@@ -248,9 +280,9 @@ class StreamingEngine:
         start of the D2H copy); returns a handle for ``_encode_result``.
         Splitting dispatch from encode lets ``replay_pcap`` overlap
         revolution N+1's device work with revolution N's entropy coding."""
-        host, sizes = self._pack([(payloads, stamps)])
+        host, sizes = self._pack([(payloads, stamps)], intensity_scale)
         packed, meta = self._device_run(*self._upload(host, sizes, batch=False),
-                                        intensity_scale, ground_uniforms)
+                                        ground_uniforms)
         return (*self._pull(packed, meta), intensity_scale)
 
     def _encode_result(self, handle) -> bytes:
@@ -289,9 +321,9 @@ class StreamingEngine:
         ``process_scan_packets``)."""
         if not scans:
             return []
-        host, sizes = self._pack(scans)
+        host, sizes = self._pack(scans, intensity_scale)
         packed, meta = self._device_run(*self._upload(host, sizes, batch=True),
-                                        intensity_scale, ground_uniforms)
+                                        ground_uniforms)
         packed, meta, done = self._pull(packed, meta)
         if done is not None:
             done.synchronize()

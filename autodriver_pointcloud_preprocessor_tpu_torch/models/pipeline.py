@@ -461,13 +461,11 @@ def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
                 # the voxel output is front-compacted: a prefix slice keeps
                 # every voxel unless they overflow the bucket, and then the
                 # unbiased hash subsample runs (a prefix in voxel-key order
-                # would keep one slab); one host read decides for a batch
-                live = b.mask.sum(-1)
-                front = ops.shrink_front(b, cap)
-                if int(live.max()) <= cap:
-                    return front, None
-                sub = ops.subsample_to(b, cap)
-                return _select_scans(live > cap, sub, front), None
+                # would keep one slab); both run and each scan selects on
+                # the device, with no host read (the reference's lax.cond)
+                return _select_scans(
+                    b.mask.sum(-1) > cap, ops.subsample_to(b, cap), ops.shrink_front(b, cap)
+                ), None
 
             stages.append(("shrink", shrink))
 
@@ -594,6 +592,47 @@ def pipeline_runner(settings: PipelineSettings):
         return buf, plane
 
     return run
+
+
+def draw_uniforms(
+    settings: PipelineSettings,
+    batch_shape: tuple,
+    capacity: int,
+    generator: Optional[torch.Generator],
+    device: torch.device,
+    ground_uniforms: Optional[torch.Tensor] = None,
+    downsample_uniforms: Optional[torch.Tensor] = None,
+):
+    """A run's random inputs, drawn ahead of it: ``(ground_uniforms,
+    downsample_uniforms)`` for ``pipeline_runner``'s ``run``.
+
+    The draws a stage would take from ``generator`` are taken here, with
+    the shapes and in the order of the stages (RANSAC's float32[...,
+    num_iterations, ransac_n], the random downsampler's float32[...,
+    capacity at its stage]), so a run handed them consumes the numbers it
+    would have drawn itself. Draws the caller gives are kept (as float32
+    on ``device``); a draw no stage of ``settings`` takes is None.
+    """
+    ransac = settings.remove_ground and settings.ground_method != "height"
+    random_ds = settings.voxel_downsample and settings.downsample_method == "random"
+    pcap = settings.pre_voxel_compact_capacity
+    ds_cap = pcap if 0 < pcap < capacity else capacity
+    lead = tuple(batch_shape)
+
+    def draw(given, shape):
+        if given is not None:
+            return torch.as_tensor(given, dtype=torch.float32, device=device)
+        return torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+
+    gu = du = None
+    ground_shape = lead + (settings.num_iterations, settings.ransac_n)
+    if ransac and settings.ground_before_voxel:  # the ground stage runs first
+        gu = draw(ground_uniforms, ground_shape)
+    if random_ds:
+        du = draw(downsample_uniforms, lead + (ds_cap,))
+    if ransac and not settings.ground_before_voxel:
+        gu = draw(ground_uniforms, ground_shape)
+    return gu, du
 
 
 @functools.lru_cache(maxsize=64)

@@ -9,6 +9,15 @@ Batches: ``process_batch`` runs a list of same-capacity buffers either as
 one batched run (every stage over a leading scan axis, each kernel
 launched as often as for one scan: the reference's ``vmap``) or as a loop
 of single-scan runs on one stream (the reference's ``lax.map``).
+
+Execution: on a CUDA card the production mode (``profile=False``) runs
+every scan, vmapped batch and sequential batch as one captured program
+(``models/graphs.py``), as the reference runs one ``jit`` program: the
+first call of a (settings, capacity, attribute schema, batch shape, mode)
+captures it, later calls replay it. The random draws are taken ahead of
+the replay from the engine's generator, in the order an eager run takes
+them (``pipeline.draw_uniforms``). On the CPU, and in profile mode, the
+stages run eagerly.
 """
 from __future__ import annotations
 
@@ -28,11 +37,13 @@ from ..core.scan import (
     valid_count,
 )
 from ..core.timing import StageTimer, get_current_time, get_time_difference
+from . import graphs
 from .pipeline import (
     STAGE_TIMING_KEYS,
     PipelineParams,
     PipelineSettings,
     build_pipeline,
+    draw_uniforms,
     params_from_config,
     settings_from_config,
     stage_functions,
@@ -56,7 +67,7 @@ class Preprocessor:
             synchronisation after each, so ``processing_times`` carries
             real per-stage wall times under the reference's keys. When
             False only ``preprocessing_time`` is recorded (the production
-            mode).
+            mode; captured programs on a CUDA card).
         seed: seed of the engine's generator (the RANSAC draws and the
             random downsampler's, drawn anew for every scan).
         device: where the engine's tensors live (default ``cuda:0``;
@@ -181,6 +192,9 @@ class Preprocessor:
         draws = (ground_uniforms, downsample_uniforms)
         if self.profile:
             buf, plane = self._run_profiled(buf, *draws)
+        elif graphs.captures(self.device):
+            draws = self._draw(buf.batch_shape, buf.capacity, *draws)
+            buf, plane = self._replay("scan", buf, draws)
         else:
             buf, plane = self._run(buf, self.params, self.generator, *draws)
         self.processing_times["preprocessing_time"] = get_time_difference(
@@ -208,13 +222,24 @@ class Preprocessor:
         if not bufs:
             return [], torch.zeros((0, 4), dtype=torch.float32, device=self.device)
         start = get_current_time(monotonic=True)
-        if sequential:
-            runs = [
-                self._run(b, self.params, self.generator,
-                          *(None if d is None else d[i]
-                            for d in (ground_uniforms, downsample_uniforms)))
-                for i, b in enumerate(bufs)
-            ]
+
+        def per_scan(i):  # scan i's draws, where the caller gave them
+            return (None if d is None else d[i] for d in (ground_uniforms, downsample_uniforms))
+
+        if graphs.captures(self.device):
+            bufs = list(bufs)
+            if sequential:
+                draws = [self._draw((), b.capacity, *per_scan(i)) for i, b in enumerate(bufs)]
+            else:
+                draws = self._draw((len(bufs),), bufs[0].capacity, ground_uniforms,
+                                   downsample_uniforms)
+            mode = "sequential" if sequential else "vmapped"
+            outs, planes = self._replay(mode, bufs, draws)
+            if not sequential:
+                outs = unstack_buffer(outs)
+        elif sequential:
+            runs = [self._run(b, self.params, self.generator, *per_scan(i))
+                    for i, b in enumerate(bufs)]
             outs, planes = [r[0] for r in runs], torch.stack([r[1] for r in runs])
         else:
             out, planes = self._run(
@@ -226,6 +251,33 @@ class Preprocessor:
             start, get_current_time(monotonic=True)
         )
         return outs, planes
+
+    def _draw(self, batch_shape, capacity, ground_uniforms, downsample_uniforms):
+        return draw_uniforms(self.settings, batch_shape, capacity, self.generator, self.device,
+                             ground_uniforms, downsample_uniforms)
+
+    def _replay(self, mode: str, bufs, draws):
+        """Run ``bufs`` through the captured program of ``mode`` ('scan',
+        'vmapped' or 'sequential') for their shapes, capturing it on the
+        first call: (buffer or buffers, plane or planes). Its tag is
+        ``("engine", mode, settings)``, its inputs ``(bufs, params,
+        draws)``."""
+        run = self._run
+
+        def make():
+            if mode == "scan":
+                return lambda b, p, d: run(b, p, None, *d)
+            if mode == "vmapped":  # the stack is captured too
+                return lambda bs, p, d: run(stack_buffers(bs), p, None, *d)
+
+            def sequential(bs, p, ds):  # the reference's lax.map
+                runs = [run(b, p, None, *d) for b, d in zip(bs, ds)]
+                return [r[0] for r in runs], torch.stack([r[1] for r in runs])
+
+            return sequential
+
+        args = (bufs, self.params, draws)
+        return graphs.program(("engine", mode, self.settings), make, *args)(*args)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

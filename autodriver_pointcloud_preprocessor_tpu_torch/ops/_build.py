@@ -11,7 +11,10 @@ loaded as it is.
 
 Each kernel wrapper counts its launches in ``LAUNCHES``; a run resets
 the counts with ``reset_launches()`` and reads them after, to show which
-kernels it went through.
+kernels it went through. A CUDA graph's replay launches the kernels its
+capture recorded without calling their wrappers, so the captured program
+(``models/graphs.py``) credits the counts its capture saw on every replay
+(``credit_launches``).
 """
 from __future__ import annotations
 
@@ -28,8 +31,8 @@ from typing import Dict, Optional, Sequence
 import torch
 
 __all__ = [
-    "LAUNCHES", "build_seconds", "check", "kernel_info", "load_library", "require_cuda",
-    "reset_launches", "stream_handle",
+    "LAUNCHES", "build_seconds", "check", "credit_launches", "kernel_info", "load_library",
+    "require_cuda", "reset_launches", "stream_handle",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -75,6 +78,13 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def credit_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` to ``LAUNCHES``: the launches of one replay of a
+    captured program, which its wrappers did not see."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 def build_seconds() -> Optional[float]:

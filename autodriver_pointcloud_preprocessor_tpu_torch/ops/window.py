@@ -174,7 +174,8 @@ def _permute_bounds(bounds, perm):
     if bounds is None:
         return None
     lo, hi = bounds
-    return lo[..., list(perm)], hi[..., list(perm)]
+    return (torch.stack([lo[..., a] for a in perm], -1),
+            torch.stack([hi[..., a] for a in perm], -1))
 
 
 def _curve_order(positions, mask, pass_idx: int, bounds=None):
@@ -182,8 +183,11 @@ def _curve_order(positions, mask, pass_idx: int, bounds=None):
     order being each sorted row's input index. ``bounds`` (in the axis
     order of ``positions``) is the quantization box, else the live box."""
     perm = _PASS_PERMS[pass_idx % len(_PASS_PERMS)]
+    # rows stacked from views: a list index would first copy the index
+    # to the device (a host transfer, which a captured program cannot hold)
     codes = hilbert_codes(
-        positions[..., list(perm), :], mask, _pass_shift(pass_idx), _permute_bounds(bounds, perm)
+        torch.stack([positions[..., a, :] for a in perm], -2), mask, _pass_shift(pass_idx),
+        _permute_bounds(bounds, perm),
     )
     return torch.sort(codes, dim=-1, stable=True)
 
@@ -371,10 +375,9 @@ def _fused_passes(positions, mask, carry, *, k, radius, window_blocks, passes,
     front-compacted and in pass-0 curve order (the curve-ordered voxel
     stage), so pass 0 needs no sort and ``shrink_to`` is a prefix slice;
     when more than ``shrink_to`` points are live, a binomial thin and a
-    pass-0 sort run instead, which reading the live counts on the host
-    decides (one device sync for a whole batch; when any scan of a batch
-    overflows, each scan takes its own branch by a select, as the
-    reference's ``lax.cond`` does under ``vmap``). Without ``presorted``
+    pass-0 sort take its place. Both run, and each scan selects its own
+    on the device (the reference's ``lax.cond``, as it runs under
+    ``vmap``), so no live count is read on the host. Without ``presorted``
     pass 0 sorts, and with ``shrink_to`` it thins, sorts and slices.
 
     Each later pass re-sorts the rows, the ``carry`` rows and the
@@ -408,14 +411,11 @@ def _fused_passes(positions, mask, carry, *, k, radius, window_blocks, passes,
     if presorted:
         rows = [px, py, pz, mask, *carry]
         if shrink_to and shrink_to < n:
-            live = mask.sum(-1)
-            prefix = [r[..., :shrink_to] for r in rows]
-            if int(live.max()) > shrink_to:  # one host read for the batch
-                thin = _thin_sort_slice(px, py, pz, mask, carry, shrink_to, bounds)
-                over = (live > shrink_to)[..., None]
-                rows = [torch.where(over, t, p) for t, p in zip(thin, prefix)]
-            else:
-                rows = prefix
+            # both branches run and each scan selects its own on the
+            # device, with no host read: the reference's lax.cond
+            over = (mask.sum(-1) > shrink_to)[..., None]
+            thin = _thin_sort_slice(px, py, pz, mask, carry, shrink_to, bounds)
+            rows = [torch.where(over, t, r[..., :shrink_to]) for t, r in zip(thin, rows)]
     elif shrink_to and shrink_to < n:
         rows = _thin_sort_slice(px, py, pz, mask, carry, shrink_to, bounds)
     else:

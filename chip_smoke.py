@@ -160,15 +160,40 @@ The sharded pipeline (``parallel.sharding``), ranks started with
     same world over gloo. Times are rank 0's CUDA events with a barrier
     before each step, 4 ranks time-sharing one card: not a scaling figure.
 
+Captured programs (``models/graphs.py``): on the card the engine's
+production mode (``Preprocessor`` with ``profile=False``) and the
+streaming engine replay one CUDA graph a scan, a batch or a revolution,
+so every engine phase above (5, 6, 8, (c), (e), (j), (m)-(o), (q), (r),
+(t)-(v)) runs replays, and its exact launch counts are the counts each
+replay credits; ``build_pipeline`` calls stay eager.
+
+32. (x) Each path as a captured program against the same path run
+    eagerly (``build_pipeline(settings)`` called directly; for streaming
+    the engine's body run eagerly) with the same draws: production, config
+    2, QUALITY, configs 6 and 7, the defaults, each downsampler (FPS 3
+    timed scans) and the height cut bit for bit (mask, positions,
+    attributes, normals, plane) with equal launch counts; one replay
+    traced with torch.profiler runs exactly the K1/K2/K3 kernels its
+    program credits; ms/scan p50 and p90 ``from_soa``..``to_soa`` and of
+    the pipeline alone, graphed and eager in turns; capture ms and graph
+    pool MB. B=8 vmapped and sequential the same way, with ms/scan.
+    ``update_config({"voxel_size": 0.08})`` and three TFs after the
+    capture: each replay bit-equal to a fresh eager engine's run. Config
+    5 replays single and ``batch=20``: blobs byte-equal to the eager
+    engine's, ms a revolution. The pipelined node's clouds against the
+    static node's are phase (t)'s check, on replays.
+
 With ``--profile DIR`` it also traces, with torch.profiler, 5 single scans
 and one vmapped batch of the production preset and of config 2, 5
 QUALITY scans, 5 scans of each path of phases 17-22 (3 of config 6, 1 of
 FPS and of config 7 in scene order), and (27, phase (s)) 5 revolutions of
 config 5's replay and of phase (r), and (r)'s batch of 8, 5 callbacks of
-the node and of the pipelined node, 2 graph rounds, and one sharded step
-on rank 0 (``DIR/sharded/profile.txt``), and writes the
+the node and of the pipelined node, 2 graph rounds, one sharded step
+on rank 0 (``DIR/sharded/profile.txt``), and 5 scans of each phase-(x)
+path graphed and eager (3 for FPS, a batch for B=8), and writes the
 time per operator (device and host) to ``DIR/profile.txt``, each table
-headed by its device-busy share, launches and syncs.
+headed by its device-busy share, kernel launches, graph launches and
+syncs.
 
 Prints the card, the numbers, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing any
@@ -362,10 +387,11 @@ def profile_runs(runs, dev, out_dir: str):
                 if e.device_type == torch.autograd.DeviceType.CUDA
             ) / 1e3
             launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+            graph_launches = sum(e.count for e in events if e.key == "cudaGraphLaunch")
             syncs = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
             line = (f"{tag}: wall {wall_ms:.3f} ms (traced), device busy {device_ms:.3f} ms "
                     f"({100 * device_ms / wall_ms:.1f}%), {launches} cudaLaunchKernel, "
-                    f"{syncs} cudaStreamSynchronize")
+                    f"{graph_launches} cudaGraphLaunch, {syncs} cudaStreamSynchronize")
             f.write(line + "\n\n")
             f.write(events.table(sort_by="self_device_time_total", row_limit=40))
             f.write("\n\n")
@@ -2127,6 +2153,303 @@ def sharded_slice(dev, profile_dir=None):
     }
 
 
+# ---- captured programs: graphed against eager (phase (x)) -------------------
+
+#: bench_suite.py config 6 under the reference's parameter names (the
+#: engine's surface); phase (x) checks it gives ``CONFIG6_SETTINGS``
+CONFIG6_NAMED = {
+    "remove_statistical_outliers": True, "remove_statistical_outliers.nb_neighbors": 16,
+    "estimate_normals": True, "estimate_normals.max_neighbors": 16, "remove_ground": True,
+    "remove_ground.ransac_number": 3, "remove_ground.num_iterations": 64, "knn_method": "window",
+    "remove_ground.before_voxel": True, "downsample.max_points": 409_600,
+    "downsample.pre_voxel_capacity": 524_288, "voxel_size": 0.05,
+    "remove_ground.distance_threshold": 0.12,
+}
+
+
+def same_tree(a, b) -> bool:
+    """Bit-equality of two nested outputs (buffers, planes, lists), on the
+    device."""
+    from torch.utils._pytree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+
+    def as_bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(as_bits(x), as_bits(y))
+        for x, y in zip(la, lb))
+
+
+def call_ms(fn, n: int) -> list:
+    """Device ms of each of ``n`` calls of ``fn`` (CUDA events, a sync after
+    each: one scan at a time)."""
+    out = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def p50_p90(times) -> tuple:
+    return float(np.median(times)), float(np.percentile(times, 90))
+
+
+def graph_slice(dev, production_cfg):
+    """Phase (x): every engine path as a captured program against the same
+    path run eagerly with the same draws (see the module docstring).
+    Returns each path's numbers and launch counts, and the profile runs."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.core import from_soa, stack_buffers, to_soa
+    from autodriver_pointcloud_preprocessor_tpu_torch.io.pcap import _read_payloads
+    from autodriver_pointcloud_preprocessor_tpu_torch.io.streaming import StreamingEngine
+    from autodriver_pointcloud_preprocessor_tpu_torch.models import graphs
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import (
+        PipelineSettings, build_pipeline, draw_uniforms, params_from_config,
+        settings_from_config,
+    )
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.preprocessor import Preprocessor
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.presets import (
+        PRODUCTION_128K_QUALITY_CONFIG,
+    )
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops import _build
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    paths, launches, profile = {}, {}, []
+    check(settings_from_config(CONFIG6_NAMED) == PipelineSettings(**CONFIG6_SETTINGS),
+          "(x) CONFIG6_NAMED does not give config 6's settings")
+
+    def counts():
+        return dict(zip(KERNELS, (_build.LAUNCHES[k] for k in KERNELS)))
+
+    def replay_trace(tag, prog, *args):
+        """One replay under torch.profiler: the K1/K2/K3 kernels the trace
+        shows must be the launches the program credits."""
+        with torch.profiler.profile(activities=acts) as prof:
+            prog(*args)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = {k: sum(f"{k}_kernel" in n for n in names) for k in KERNELS}
+        check(seen == prog.credits, f"(x) {tag}: one replay ran {seen}, credited {prog.credits}")
+        return seen, len(names)
+
+    def program_stats(prog):
+        return {"capture_ms": prog.capture_ms, "pool_mb": prog.pool_bytes / 2**20}
+
+    def engine_path(tag, cfg, soa, capacity, timed):
+        t0 = time.perf_counter()
+        engine = Preprocessor(cfg, seed=0)
+        s = engine.settings
+        run = build_pipeline(s)
+        gu = torch.from_numpy(np.random.default_rng(7).uniform(
+            size=(s.num_iterations, s.ransac_n)).astype(np.float32)).to(dev)
+        ds_cap = s.pre_voxel_compact_capacity or capacity
+        du = torch.from_numpy(np.random.default_rng(8).uniform(size=ds_cap).astype(np.float32)).to(dev)
+        draws = draw_uniforms(s, (), capacity, None, dev, gu, du)
+        buf, meta = from_soa(soa, capacity=capacity, device=dev)
+        _build.reset_launches()
+        got = engine.process_buffer(buf, gu, du)  # the capture and one replay
+        torch.cuda.synchronize()
+        graphed = counts()
+        _build.reset_launches()
+        want = run(buf, engine.params, None, *draws)
+        torch.cuda.synchronize()
+        eager = counts()
+        check(graphed == eager, f"(x) {tag}: graphed launches {graphed}, eager {eager}")
+        check(same_tree(got, want), f"(x) {tag}: graphed output differs from the eager run's")
+        prog = graphs.lookup(("engine", "scan", s), (buf, engine.params, draws))
+        check(prog is not None, f"(x) {tag}: no program ran")
+        seen, nodes = replay_trace(tag, prog, buf, engine.params, draws)
+
+        def scan_graphed():
+            b, m = from_soa(soa, capacity=capacity, device=dev)
+            return to_soa(engine.process_buffer(b, gu, du)[0], m)
+
+        def scan_eager():
+            b, m = from_soa(soa, capacity=capacity, device=dev)
+            return to_soa(run(b, engine.params, None, *draws)[0], m)
+
+        check(len(scan_graphed()["positions"]) == int(got[0].mask.sum()), f"(x) {tag}: to_soa")
+        half = max(timed // 2, 1)  # in turns: graphed, eager, eager, graphed
+        tg = call_ms(scan_graphed, half)
+        te = call_ms(scan_eager, half) + call_ms(scan_eager, timed - half)
+        tg += call_ms(scan_graphed, timed - half)
+        pg = call_ms(lambda: engine.process_buffer(buf, gu, du), timed)
+        pe = call_ms(lambda: run(buf, engine.params, None, *draws), timed)
+        n = int(got[0].mask.sum())
+        row = {"scan_graphed_ms": p50_p90(tg), "scan_eager_ms": p50_p90(te),
+               "pipeline_graphed_ms": p50_p90(pg), "pipeline_eager_ms": p50_p90(pe),
+               **program_stats(prog), "kernels_a_replay": seen, "device_ops_a_replay": nodes,
+               "survivors": n, "timed": timed}
+        paths[tag] = row
+        launches[f"graph_{tag}"] = graphed
+        print(f"[chip_smoke] (x) {tag}: graphed == eager bit for bit ({n} survivors, normals and "
+              f"plane), launches {json.dumps(graphed)} a scan both ways, a replay traced "
+              f"{json.dumps(seen)} of {nodes} device ops; capture {prog.capture_ms:.1f} ms, pool "
+              f"{prog.pool_bytes / 2**20:.1f} MB; ms/scan from_soa..to_soa p50/p90 graphed "
+              f"{row['scan_graphed_ms'][0]:.3f}/{row['scan_graphed_ms'][1]:.3f}, eager "
+              f"{row['scan_eager_ms'][0]:.3f}/{row['scan_eager_ms'][1]:.3f}; pipeline alone "
+              f"graphed {row['pipeline_graphed_ms'][0]:.3f}/{row['pipeline_graphed_ms'][1]:.3f}, "
+              f"eager {row['pipeline_eager_ms'][0]:.3f}/{row['pipeline_eager_ms'][1]:.3f} "
+              f"({timed} timed; {time.perf_counter() - t0:.1f} s)")
+        n_prof = min(timed, 5)
+        profile.append((f"(x) {tag} graphed: {n_prof} scans",
+                        lambda: [scan_graphed() for _ in range(n_prof)]))
+        profile.append((f"(x) {tag} eager: {n_prof} scans",
+                        lambda: [scan_eager() for _ in range(n_prof)]))
+        return engine
+
+    soa_bench = bench_soa()
+    t_all = time.perf_counter()
+    production = engine_path("production", production_cfg, soa_bench, CAPACITY, TIMED)
+    engine_path("config2", CONFIG2, soa_positions(), CAPACITY, TIMED)
+    engine_path("quality", PRODUCTION_128K_QUALITY_CONFIG, soa_bench, CAPACITY, TIMED)
+    engine_path("config6", CONFIG6_NAMED, {"positions": scene(CONFIG6_POINTS)}, CONFIG6_CAPACITY, 10)
+    engine_path("config7", {**production_cfg, "remove_ground.before_voxel": False,
+                            "downsample.max_points": 0}, sensor_order(soa_bench), CAPACITY, TIMED)
+    engine_path("defaults", {}, soa_bench, CAPACITY, TIMED)
+    for method in ("random", "uniform", "farthest_point"):
+        engine_path(f"downsample_{method}", {**production_cfg, "downsample_method": method},
+                    soa_bench, CAPACITY, 3 if method == "farthest_point" else TIMED)
+    engine_path("height_ground", {**production_cfg, "remove_ground.method": "height",
+                                  "ground_plane": [0.0, 0.0, 1.0, 0.0]}, soa_bench, CAPACITY, TIMED)
+
+    # ---- B=8, vmapped and sequential -------------------------------------
+    t0 = time.perf_counter()
+    engine, run = production, build_pipeline(production.settings)
+    bufs = [from_soa(bench_soa(seed), capacity=CAPACITY, device=dev)[0] for seed in range(BATCH)]
+    s = engine.settings
+    u = torch.from_numpy(np.random.default_rng(3).uniform(
+        size=(BATCH, s.num_iterations, s.ransac_n)).astype(np.float32)).to(dev)
+    for sequential in (False, True):
+        mode = "sequential" if sequential else "vmapped"
+        _build.reset_launches()
+        got = engine.process_batch(bufs, sequential=sequential, ground_uniforms=u)
+        torch.cuda.synchronize()
+        graphed = counts()
+        _build.reset_launches()
+        if sequential:
+            runs = [run(b, engine.params, None, u[i]) for i, b in enumerate(bufs)]
+            want = ([r[0] for r in runs], torch.stack([r[1] for r in runs]))
+            got_cmp = got
+        else:
+            want = run(stack_buffers(bufs), engine.params, None, u)
+            got_cmp = (stack_buffers(got[0]), got[1])
+        torch.cuda.synchronize()
+        eager = counts()
+        check(graphed == eager, f"(x) B={BATCH} {mode}: graphed launches {graphed}, eager {eager}")
+        check(same_tree(got_cmp, want), f"(x) B={BATCH} {mode}: graphed differs from eager")
+        draws = ([draw_uniforms(s, (), CAPACITY, None, dev, u[i]) for i in range(BATCH)]
+                 if sequential else draw_uniforms(s, (BATCH,), CAPACITY, None, dev, u))
+        prog = graphs.lookup(("engine", mode, s), (bufs, engine.params, draws))
+        check(prog is not None, f"(x) B={BATCH} {mode}: no program ran")
+        seen, nodes = replay_trace(f"B={BATCH} {mode}", prog, bufs, engine.params, draws)
+
+        def eager_batch(sequential=sequential):
+            if sequential:
+                return [run(b, engine.params, None, u[i]) for i, b in enumerate(bufs)]
+            return run(stack_buffers(bufs), engine.params, None, u)
+
+        tg = [t / BATCH for t in call_ms(
+            lambda sq=sequential: engine.process_batch(bufs, sequential=sq, ground_uniforms=u), 5)]
+        te = [t / BATCH for t in call_ms(eager_batch, 5)]
+        tag = f"b{BATCH}_{mode}"
+        paths[tag] = {"ms_per_scan_graphed": p50_p90(tg), "ms_per_scan_eager": p50_p90(te),
+                      **program_stats(prog), "kernels_a_replay": seen, "device_ops_a_replay": nodes}
+        launches[f"graph_{tag}"] = graphed
+        print(f"[chip_smoke] (x) B={BATCH} {mode}: graphed == eager bit for bit, launches "
+              f"{json.dumps(graphed)} a batch both ways, a replay traced {json.dumps(seen)}; "
+              f"capture {prog.capture_ms:.1f} ms, pool {prog.pool_bytes / 2**20:.1f} MB; ms/scan "
+              f"(device buffers in and out, median of 5 batches) graphed {paths[tag]['ms_per_scan_graphed'][0]:.3f}, "
+              f"eager {paths[tag]['ms_per_scan_eager'][0]:.3f}")
+        profile.append((f"(x) B={BATCH} {mode} graphed: 1 batch",
+                        lambda sq=sequential: engine.process_batch(bufs, sequential=sq, ground_uniforms=u)))
+    print(f"[chip_smoke] (x) B={BATCH} took {time.perf_counter() - t0:.1f} s")
+
+    # ---- a reconfigure and a changing TF after capture ---------------------
+    t0 = time.perf_counter()
+    buf, _ = from_soa(soa_bench, capacity=CAPACITY, device=dev)
+    gu = u[0]
+    reconf = Preprocessor(production_cfg, seed=0)
+    reconf.process_buffer(buf, gu)  # the capture (or a replay of phase 5's program)
+
+    def fresh_eager(cfg, tf=None):
+        s = settings_from_config({**cfg, "_has_tf": tf is not None})
+        return build_pipeline(s)(buf, params_from_config(cfg, tf, dev), None, gu)
+
+    delta = {"voxel_size": 0.08}
+    programs_before = len(graphs.programs())
+    reconf.update_config(delta)
+    check(same_tree(reconf.process_buffer(buf, gu), fresh_eager({**production_cfg, **delta})),
+          "(x) after update_config the replay differs from a fresh eager engine's")
+    reused = len(graphs.programs()) == programs_before
+    tf = np.eye(4, dtype=np.float32)
+    for shift in (0.0, 0.75, -1.25):  # a TF, then two replacing it
+        tf[:3, 3] = (1.5, -0.5 + shift, 1.9)
+        reconf.set_tf_matrix(tf)
+        check(same_tree(reconf.process_buffer(buf, gu), fresh_eager({**production_cfg, **delta}, tf)),
+              f"(x) with TF shift {shift} the replay differs from a fresh eager engine's")
+    print(f"[chip_smoke] (x) update_config({json.dumps(delta)}) after capture "
+          f"({'the same program' if reused else 'a new program'}) and three TFs: each replay "
+          f"bit-equal to a fresh eager engine ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- streaming: config 5 single and batch=20 ---------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/config5.pcap"
+        write_pcap(path, *vlp16_ring_capture(CONFIG5_PACKETS))
+        graphed_engine = StreamingEngine(CONFIG5, packet_bucket=CONFIG5_BUCKET)
+        eager_engine = StreamingEngine(CONFIG5, packet_bucket=CONFIG5_BUCKET)
+        captures = graphs.captures
+
+        def eager_replay(batch):
+            graphs.captures = lambda device: False  # the engine's body, eagerly
+            try:
+                return list(eager_engine.replay_pcap(path, batch=batch))
+            finally:
+                graphs.captures = captures
+
+        for batch in (1, 20):
+            tag = "streaming_config5" if batch == 1 else "streaming_config5_batch20"
+            _build.reset_launches()
+            got = list(graphed_engine.replay_pcap(path, batch=batch))
+            torch.cuda.synchronize()
+            graphed = counts()
+            _build.reset_launches()
+            want = eager_replay(batch)
+            torch.cuda.synchronize()
+            check(graphed == counts(), f"(x) {tag}: graphed launches {graphed}, eager {counts()}")
+            check(got == want, f"(x) {tag}: graphed blobs differ from the eager engine's")
+            walls_g, walls_e = [], []
+            for _ in range(3):  # in turns
+                w0 = time.perf_counter()
+                list(graphed_engine.replay_pcap(path, batch=batch))
+                walls_g.append((time.perf_counter() - w0) * 1e3 / len(got))
+                w0 = time.perf_counter()
+                eager_replay(batch)
+                walls_e.append((time.perf_counter() - w0) * 1e3 / len(got))
+            prog = graphs.programs()[-1]
+            paths[tag] = {"ms_per_revolution_graphed": float(np.median(walls_g)),
+                          "ms_per_revolution_eager": float(np.median(walls_e)),
+                          **program_stats(prog), "revolutions": len(got)}
+            launches[f"graph_{tag}"] = graphed
+            print(f"[chip_smoke] (x) {tag}: {len(got)} blobs byte-equal to the eager engine's, "
+                  f"launches {json.dumps(graphed)} both ways; capture {prog.capture_ms:.1f} ms, "
+                  f"pool {prog.pool_bytes / 2**20:.1f} MB; ms a revolution (replay wall / "
+                  f"revolutions, median of 3) graphed {paths[tag]['ms_per_revolution_graphed']:.3f}, "
+                  f"eager {paths[tag]['ms_per_revolution_eager']:.3f}")
+        revs = revolutions(*_read_payloads(path))[:5]
+        profile.append(("(x) streaming config 5 graphed: 5 revolutions",
+                        lambda: [graphed_engine.process_scan_packets(*r) for r in revs]))
+    print(f"[chip_smoke] (x) streaming took {time.perf_counter() - t0:.1f} s; phase (x) "
+          f"{time.perf_counter() - t_all:.1f} s, {len(graphs.programs())} programs cached")
+    return {"paths": paths, "launches": launches, "profile": profile}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
@@ -2518,6 +2841,9 @@ def main() -> None:
     profile_dir = sys.argv[sys.argv.index("--profile") + 1] if "--profile" in sys.argv else None
     slice7 = sharded_slice(dev, profile_dir)
 
+    # ---- captured programs against eager runs ----------------------------
+    slice8 = graph_slice(dev, cfg)
+
     if "--profile" in sys.argv:
         def single():
             for _ in range(5):
@@ -2528,7 +2854,8 @@ def main() -> None:
             [("production: 5 single scans", single),
              (f"production: 1 vmapped batch of {BATCH}",
               lambda: engine.process_batch(bufs, ground_uniforms=batch_draws)),
-             *slice3["profile"], *slice4["profile"], *slice5["profile"], *slice6["profile"]],
+             *slice3["profile"], *slice4["profile"], *slice5["profile"], *slice6["profile"],
+             *slice8["profile"]],
             dev, sys.argv[sys.argv.index("--profile") + 1],
         )
 
@@ -2539,7 +2866,7 @@ def main() -> None:
     paths = {"production_single": single_launches,
              **{f"production_{m}": v for m, v in batch_launches.items()},
              **slice3["launches"], **slice4["launches"], **slice5["launches"], **slice6["launches"],
-             **slice7["launches"]}
+             **slice7["launches"], **slice8["launches"]}
     for name, counts in paths.items():
         # config 3 (RANSAC alone) runs no kernel; drive() checked its zeros
         check(name == "config3" or any(counts.values()), f"path {name} launched no kernel")
@@ -2581,6 +2908,7 @@ def main() -> None:
     print(f"[chip_smoke] node layer ms: {json.dumps(slice6['timings'])}")
     print(f"[chip_smoke] sharded ms/step: {json.dumps(slice7['timings'])}, collectives a step "
           f"{json.dumps(slice7['collectives'])}")
+    print(f"[chip_smoke] captured programs against eager runs: {json.dumps(slice8['paths'])}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -819,3 +819,126 @@ def test_sharded_gloo_ranks_on_card_match_cpu(cuda, tmp_path):
     assert len(common) / len(a.keys() | c.keys()) >= 0.99
     cos = np.array([abs(float(np.dot(a[p], c[p]))) for p in common])
     assert float((cos >= np.cos(np.deg2rad(2.0))).mean()) >= 0.98
+
+
+# ---- captured programs (models/graphs.py) ------------------------------------
+
+def _same_tree(a, b):
+    from torch.utils._pytree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and torch.equal(_bits(x), _bits(y)) for x, y in zip(la, lb))
+
+
+def _draws(settings, batch=None, seed=9):
+    shape = (settings.num_iterations, settings.ransac_n)
+    u = _rng(seed).uniform(size=shape if batch is None else (batch,) + shape)
+    return torch.from_numpy(u.astype(np.float32))
+
+
+def test_graphed_engine_equals_eager_on_card(cuda):
+    """Single scans and B=8 batches (vmapped and sequential) replayed from
+    captured programs: bit-equal to ``build_pipeline`` run eagerly with
+    the same draws, with the same launch counts."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.core import stack_buffers
+
+    engine = Preprocessor(_SLICE_CFG)
+    run = build_pipeline(engine.settings)
+    bufs = [from_soa(_scene_soa(i, 0.6), capacity=8192)[0] for i in range(8)]
+    u = _draws(engine.settings, batch=8).to(cuda)
+    for _ in range(2):  # the capture, then a replay
+        _build.reset_launches()
+        got = engine.process_buffer(bufs[0], ground_uniforms=u[0])
+        graphed = dict(_build.LAUNCHES)
+        _build.reset_launches()
+        assert _same_tree(got, run(bufs[0], engine.params, None, u[0]))
+        assert graphed == dict(_build.LAUNCHES) == {
+            "masked_compact": 1, "segmented_sums": 1, "window_stats": 2}
+    outs, planes = engine.process_batch(bufs, ground_uniforms=u)
+    assert _same_tree((stack_buffers(outs), planes),
+                      run(stack_buffers(bufs), engine.params, None, u))
+    outs, planes = engine.process_batch(bufs, sequential=True, ground_uniforms=u)
+    runs = [run(b, engine.params, None, u[i]) for i, b in enumerate(bufs)]
+    assert _same_tree((outs, planes), ([r[0] for r in runs], torch.stack([r[1] for r in runs])))
+
+
+def test_graphed_streaming_equals_eager_on_card(cuda, tmp_path, monkeypatch):
+    """Config 5 replays, single and batched, from captured programs: blobs
+    byte-equal to the same engine run eagerly."""
+    import chip_smoke
+    from autodriver_pointcloud_preprocessor_tpu_torch.io.streaming import StreamingEngine
+    from autodriver_pointcloud_preprocessor_tpu_torch.models import graphs
+
+    path = str(tmp_path / "ring.pcap")
+    chip_smoke.write_pcap(path, *chip_smoke.vlp16_ring_capture(300))
+    graphed = StreamingEngine(chip_smoke.CONFIG5, packet_bucket=80)
+    single, batch = list(graphed.replay_pcap(path)), list(graphed.replay_pcap(path, batch=4))
+    monkeypatch.setattr(graphs, "captures", lambda device: False)
+    eager = StreamingEngine(chip_smoke.CONFIG5, packet_bucket=80)
+    assert single == list(eager.replay_pcap(path)) == batch
+    assert list(eager.replay_pcap(path, batch=4)) == batch
+
+
+def test_reconfigure_and_tf_after_capture_on_card(cuda):
+    """A numeric reconfigure and a TF replacing a TF after the capture reach
+    the replay: each result equals a fresh engine's eager run."""
+    engine = Preprocessor(_SLICE_CFG)
+    buf = from_soa(_scene_soa(3, 0.5), capacity=8192)[0]
+    u = _draws(engine.settings).to(cuda)
+    engine.process_buffer(buf, ground_uniforms=u)
+    cfg = {**_SLICE_CFG, "voxel_size": 0.08}
+    engine.update_config({"voxel_size": 0.08})
+
+    def eager(tf=None):
+        run = build_pipeline(settings_from_config({**cfg, "_has_tf": tf is not None}))
+        return run(buf, params_from_config(cfg, tf, cuda), None, u)
+
+    assert _same_tree(engine.process_buffer(buf, ground_uniforms=u), eager())
+    tf = np.eye(4, dtype=np.float32)
+    for shift in (0.0, 0.5):
+        tf[:3, 3] = (1.0, shift, 1.9)
+        engine.set_tf_matrix(tf)
+        assert _same_tree(engine.process_buffer(buf, ground_uniforms=u), eager(tf))
+
+
+def test_pipelined_node_outputs_are_not_overwritten_on_card(cuda):
+    """The pipelined node resolves scan N after scan N+1's replay: its
+    clouds equal the static node's, byte for byte."""
+    import chip_smoke
+
+    msgs = [chip_smoke.velodyne_msg(i, 1.0 + 0.1 * i) for i in range(4)]
+    clouds = []
+    for pipelined in (False, True):
+        node, pub, outs = _node()
+        node.pipelined = pipelined
+        for m in msgs:
+            pub.publish(m)
+        if pipelined:
+            node.flush_pipeline()
+        clouds.append([o.data for o in outs])
+    assert len(clouds[0]) == len(msgs) and clouds[0] == clouds[1]
+
+
+def test_replay_credits_the_launches_the_profiler_sees(cuda):
+    """One replay of the production slice's program runs exactly the K1,
+    K2 and K3 kernels it credits to the launch counts."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.models import graphs
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import draw_uniforms
+
+    engine = Preprocessor(_SLICE_CFG)
+    buf = from_soa(_scene_soa(4, 0.6), capacity=8192)[0]
+    u = _draws(engine.settings).to(cuda)
+    engine.process_buffer(buf, ground_uniforms=u)
+    draws = draw_uniforms(engine.settings, (), 8192, None, cuda, u)
+    prog = graphs.lookup(("engine", "scan", engine.settings), (buf, engine.params, draws))
+    assert prog.credits == {"masked_compact": 1, "segmented_sums": 1, "window_stats": 2}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(2):  # the first trace warms the tracer up
+        _build.reset_launches()
+        with torch.profiler.profile(activities=acts) as prof:
+            prog(buf, engine.params, draws)
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen = {k: sum(f"{k}_kernel" in n for n in names) for k in prog.credits}
+    assert seen == prog.credits == dict(_build.LAUNCHES)
