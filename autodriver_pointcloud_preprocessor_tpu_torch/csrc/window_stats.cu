@@ -487,23 +487,32 @@ size_t window_smem(int wb, int kmode) {
   return ((size_t)lead_floats(kmode, span) + 3 * span) * sizeof(float);
 }
 
+// devices whose attributes are remembered as set (others set them at every launch)
+constexpr int kMaxDevices = 64;
+
 template <int MAXK, int KMODE, bool COUNT2>
 cudaError_t set_attributes() {
-  static bool done = false;  // once per instantiation
-  if (done) return cudaSuccess;
+  // once per instantiation and device: a function attribute is set in the
+  // current device's context only, so a kernel set up on one card would
+  // fail to launch on another with its shared memory over 48 KB
+  static bool done[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const bool remembered = device >= 0 && device < kMaxDevices;
+  if (remembered && done[device]) return cudaSuccess;
   auto kernel = window_stats_kernel<MAXK, KMODE, COUNT2>;
   size_t most = 0;
   for (int w = 0; w <= kMaxWb; ++w) {
     const size_t bytes = window_smem(w, KMODE);
     most = bytes > most ? bytes : most;
   }
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)most);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   }
-  done = err == cudaSuccess;
+  if (remembered) done[device] = err == cudaSuccess;
   return err;
 }
 

@@ -16,31 +16,48 @@ identity. ``program`` captures on the first call of a key:
 
 1. static input tensors are allocated and filled from that call's inputs;
 2. one warm-up run on a side stream builds what a first run builds (the
-   kernel library, K3's function attributes, cuBLAS state), outside the
-   capture;
+   kernel library, K3's function attributes, cuBLAS state, an NCCL
+   communicator), outside the capture;
 3. the capture records one run into the graph's own memory pool;
-4. the kernel launches counted during the capture become the program's
-   credits (``ops._build.credit_launches`` adds them on every replay,
-   since a replay does not pass through the kernels' wrappers); the
-   warm-up's and the capture's own counts are taken back.
+4. what the capture counted becomes the program's credits: the kernel
+   launches (``ops._build.LAUNCHES``) and any counter the caller names
+   (the sharded step's collectives). A replay does not pass through the
+   kernels' wrappers or the collectives' counters, so every replay adds
+   its credits; the warm-up's and the capture's own counts are taken
+   back.
+
+Capture and replay run under ``ops._build.device_guard`` of the inputs'
+device, and capture on a stream of that device, so a program on
+``cuda:1`` captures and replays there whatever device is current. The
+capture's error mode is ``"thread_local"``: CUDA calls this thread must
+not make during a capture still raise, while other threads' calls
+(NCCL's watchdog querying its events, a pipelined node's worker) leave
+the capture alone, as they would not under ``"global"``.
 
 A call copies its inputs into the static ones (one ``torch._foreach_copy_``
-a dtype), replays the graph on the current stream and returns clones of
-the outputs, so that the next replay cannot overwrite a result a caller
-still holds. Numeric parameters are inputs too, so ``update_config``'s
-numeric changes and a new TF reach the graph with the next call. Nothing
-inside a capture may read a device value on the host or draw from a
-``torch.Generator``: callers draw ahead (``pipeline.draw_uniforms``).
-A failed capture or replay raises; nothing falls back to eager
-execution. The cache holds ``MAX_PROGRAMS`` programs, least recently
-used first out; an evicted program releases its graph and memory pool.
+a dtype), replays the graph on the current stream of its device and
+returns clones of the outputs, so that the next replay cannot overwrite a
+result a caller still holds. Numeric parameters are inputs too, so
+``update_config``'s numeric changes and a new TF reach the graph with the
+next call. Nothing inside a capture may read a device value on the host
+or draw from a ``torch.Generator``: callers draw ahead
+(``pipeline.draw_uniforms``). A failed capture or replay raises; nothing
+falls back to eager execution.
+
+The cache drops its least recently used programs while it holds more
+than ``MAX_PROGRAMS`` programs, or while the graph pools of one device's
+programs hold more than ``POOL_FRACTION`` of that device's memory (the
+newest program always stays). An evicted program releases its graph; its
+pool's memory goes back to the card only at ``torch.cuda.empty_cache``
+(the caching allocator keeps a freed pool's segments until then), so an
+eviction ends with that call.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch.utils import _pytree as pytree
@@ -50,12 +67,19 @@ from ..ops import _build
 from .pipeline import PipelineParams
 
 __all__ = [
-    "MAX_PROGRAMS", "CapturedProgram", "captures", "clear", "lookup", "program", "program_key",
-    "programs",
+    "MAX_PROGRAMS", "POOL_FRACTION", "CapturedProgram", "captures", "clear", "lookup", "program",
+    "program_key", "programs",
 ]
 
 #: programs kept, as the reference's ``lru_cache(maxsize=64)``
 MAX_PROGRAMS = 64
+#: the share of a card's memory the cached programs' graph pools may hold
+#: together. The reference's compiled programs allocate their buffers per
+#: call; a captured program keeps its pool for as long as it is cached
+#: (production 170 MB, config 6 1.3 GB, a B=8 batch 1.6 GB). A quarter
+#: leaves the rest of the card to the eager working set, the callers'
+#: tensors and the next capture: on an 80 GB card, a dozen B=8 programs.
+POOL_FRACTION = 0.25
 
 pytree.register_pytree_node(
     ScanBuffer,
@@ -78,30 +102,39 @@ def captures(device: torch.device) -> bool:
 
 
 def _capture(fn: Callable, device: torch.device):
-    """Warm up ``fn()`` on a side stream, then capture one run into a graph
-    with its own memory pool. Returns (graph, outputs, pool bytes)."""
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):  # no pool given: a private one
-        reserved = torch.cuda.memory_reserved(device)
-        outputs = fn()
-        pool_bytes = torch.cuda.memory_reserved(device) - reserved
+    """Warm up ``fn()`` on a side stream of ``device``, then capture one run
+    on another stream of it into a graph with its own memory pool, all
+    under the device's guard. Returns (graph, outputs, pool bytes)."""
+    with _build.device_guard(device):
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # no pool given: a private one
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(device),
+                              capture_error_mode="thread_local"):
+            reserved = torch.cuda.memory_reserved(device)
+            outputs = fn()
+            pool_bytes = torch.cuda.memory_reserved(device) - reserved
     return graph, outputs, pool_bytes
 
 
 class CapturedProgram:
     """One captured run of ``fn(*args)`` (see the module docstring).
 
-    Attributes: ``credits`` (kernel launches a replay makes),
+    ``counters``: dicts of host-side counts, besides the kernel launches,
+    that ``fn`` adds to and a replay credits.
+
+    Attributes: ``device``, ``credits`` (kernel launches a replay makes),
     ``capture_ms`` (host ms of the warm-up and the capture), ``pool_bytes``
     (device memory the capture reserved for its pool), ``replays``.
     """
 
-    def __init__(self, fn: Callable, args: tuple, device: torch.device):
+    def __init__(self, fn: Callable, args: tuple, device: torch.device,
+                 counters: Sequence[Dict[str, int]] = ()):
+        self.device = device
         leaves, self._spec = _flatten(args)
         t0 = time.perf_counter()
         self.static = [
@@ -114,19 +147,22 @@ class CapturedProgram:
                 by_dtype[t.dtype].append(i)
         self._groups = list(by_dtype.values())
         self._fill(leaves)
-        saved = dict(_build.LAUNCHES)
+        counters = (_build.LAUNCHES, *counters)
+        saved = [dict(c) for c in counters]
         self._fn = fn  # kept: the tensors it closes over stay alive
         static_args = pytree.tree_unflatten(self.static, self._spec)
 
         def counted():
-            before = dict(_build.LAUNCHES)
+            before = [dict(c) for c in counters]
             out = fn(*static_args)
-            return out, {k: _build.LAUNCHES[k] - before[k] for k in before}
+            return out, [{k: c[k] - b[k] for k in b} for c, b in zip(counters, before)]
 
-        graph, (outputs, credits), self.pool_bytes = _capture(counted, device)
-        _build.LAUNCHES.update(saved)  # set-up, not a run
+        graph, (outputs, deltas), self.pool_bytes = _capture(counted, device)
+        for c, s in zip(counters, saved):
+            c.update(s)  # set-up, not a run
         self._graph = graph
-        self.credits = credits
+        self.credits = deltas[0]
+        self._credits = list(zip(counters, deltas))
         self._outputs, self._out_spec = pytree.tree_flatten(outputs)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.replays = 0
@@ -140,11 +176,16 @@ class CapturedProgram:
         capture's). ``clone=False`` returns the graph's own output tensors,
         which the next replay overwrites: only for a caller that consumes
         them on the current stream before that."""
-        self._fill(_flatten(args)[0])
-        self._graph.replay()
-        _build.credit_launches(self.credits)
+        with _build.device_guard(self.device):
+            self._fill(_flatten(args)[0])
+            self._graph.replay()
+        for counter, delta in self._credits:
+            for k, n in delta.items():
+                counter[k] += n
         self.replays += 1
-        outs = [o.clone() for o in self._outputs] if clone else self._outputs
+        outs = self._outputs
+        if clone:  # a stage without a plane returns None beside its buffer
+            outs = [None if o is None else o.clone() for o in outs]
         return pytree.tree_unflatten(outs, self._out_spec)
 
 
@@ -168,10 +209,12 @@ def program_key(tag, args) -> tuple:
         None if t is None else (tuple(t.shape), t.dtype, t.device) for t in leaves))
 
 
-def program(tag, make_fn: Callable[[], Callable], *args) -> CapturedProgram:
+def program(tag, make_fn: Callable[[], Callable], *args,
+            counters: Sequence[Dict[str, int]] = ()) -> CapturedProgram:
     """The captured program of ``tag`` for inputs shaped as ``args``;
     ``make_fn()`` gives the function to capture on a miss, which then
-    captures it on ``args``. The tag must fix everything the function does
+    captures it on ``args`` (crediting ``counters`` on every replay, see
+    ``CapturedProgram``). The tag must fix everything the function does
     that is not in its inputs."""
     key = program_key(tag, args)
     found = _PROGRAMS.get(key)
@@ -179,11 +222,29 @@ def program(tag, make_fn: Callable[[], Callable], *args) -> CapturedProgram:
         _PROGRAMS.move_to_end(key)
         return found
     device = next(t for t in _flatten(args)[0] if t is not None).device
-    prog = CapturedProgram(make_fn(), args, device)
+    prog = CapturedProgram(make_fn(), args, device, counters)
     _PROGRAMS[key] = prog
-    while len(_PROGRAMS) > MAX_PROGRAMS:
-        _PROGRAMS.popitem(last=False)
+    _evict(device)
     return prog
+
+
+def _evict(device: torch.device) -> None:
+    """Drop least recently used programs, the newest excepted, while the
+    cache holds more than ``MAX_PROGRAMS`` or the pools of ``device``'s
+    programs more than ``POOL_FRACTION`` of its memory; then hand the freed
+    pools back to the card (see the module docstring)."""
+    budget = POOL_FRACTION * torch.cuda.mem_get_info(device)[1]
+    held = sum(p.pool_bytes for p in _PROGRAMS.values() if p.device == device)
+    evicted = False
+    for key in list(_PROGRAMS)[:-1]:
+        mine = _PROGRAMS[key].device == device
+        if len(_PROGRAMS) > MAX_PROGRAMS or (mine and held > budget):
+            # no name keeps the dropped program: its pool is freed here
+            pool_bytes = _PROGRAMS.pop(key).pool_bytes
+            held -= pool_bytes if mine else 0
+            evicted = True
+    if evicted:
+        torch.cuda.empty_cache()
 
 
 def programs() -> List[CapturedProgram]:

@@ -16,7 +16,10 @@ every scan, vmapped batch and sequential batch as one captured program
 first call of a (settings, capacity, attribute schema, batch shape, mode)
 captures it, later calls replay it. The random draws are taken ahead of
 the replay from the engine's generator, in the order an eager run takes
-them (``pipeline.draw_uniforms``). On the CPU, and in profile mode, the
+them (``pipeline.draw_uniforms``). Profile mode replays one program a
+(settings, stage, input shapes) instead, as the reference jits each
+stage (``_stage_jit``), with the draws taken ahead the same way and a
+sync after each stage, so each stage's time is its own. On the CPU the
 stages run eagerly.
 """
 from __future__ import annotations
@@ -285,14 +288,26 @@ class Preprocessor:
 
     def _run_profiled(self, buf: ScanBuffer, ground_uniforms: Optional[torch.Tensor],
                       downsample_uniforms: Optional[torch.Tensor]):
+        """The stages one by one, each timed to a sync after it: on a card
+        each stage's captured program (tag ``("stage", name, settings)``,
+        inputs ``(buf, params, draws)``), else the stage itself."""
         plane = torch.full(
             buf.batch_shape + (4,), float("nan"), dtype=torch.float32, device=buf.device
         )
+        graphed = graphs.captures(self.device)
+        if graphed:
+            draws = self._draw(buf.batch_shape, buf.capacity, ground_uniforms, downsample_uniforms)
         self._sync()
         for name, fn in stage_functions(self.settings, separate_stages=True):
             with self._timer.stage(STAGE_TIMING_KEYS[name]):
-                buf, aux = fn(buf, self.params, self.generator, ground_uniforms,
-                              downsample_uniforms)
+                if graphed:
+                    args = (buf, self.params, draws)
+                    buf, aux = graphs.program(
+                        ("stage", name, self.settings),
+                        lambda fn=fn: lambda b, p, d: fn(b, p, None, *d), *args)(*args)
+                else:
+                    buf, aux = fn(buf, self.params, self.generator, ground_uniforms,
+                                  downsample_uniforms)
                 self._sync()
             if aux is not None:
                 plane = aux

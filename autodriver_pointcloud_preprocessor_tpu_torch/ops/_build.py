@@ -13,11 +13,20 @@ Each kernel wrapper counts its launches in ``LAUNCHES``; a run resets
 the counts with ``reset_launches()`` and reads them after, to show which
 kernels it went through. A CUDA graph's replay launches the kernels its
 capture recorded without calling their wrappers, so the captured program
-(``models/graphs.py``) credits the counts its capture saw on every replay
-(``credit_launches``).
+(``models/graphs.py``) adds the counts its capture saw on every replay.
+
+A launch goes through ``launch``: the C entry runs inside
+``device_guard`` of its tensors' device, on that device's current
+stream. ctypes calls run in the CUDA context of the current device, so
+without the guard a tensor on ``cuda:1`` while ``cuda:0`` is current
+would be handed to a stream of the wrong device. The guard costs one
+device switch (and one back) a launch when the tensors' device is not
+the current one, and nothing when it is. The captured programs
+(``models/graphs.py``) enter the same guard around capture and replay.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -31,8 +40,8 @@ from typing import Dict, Optional, Sequence
 import torch
 
 __all__ = [
-    "LAUNCHES", "build_seconds", "check", "credit_launches", "kernel_info", "load_library",
-    "require_cuda", "reset_launches", "stream_handle",
+    "LAUNCHES", "build_seconds", "check", "device_guard", "kernel_info",
+    "launch", "load_library", "require_cuda", "reset_launches", "stream_handle",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -78,13 +87,6 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def credit_launches(counts: Dict[str, int]) -> None:
-    """Add ``counts`` to ``LAUNCHES``: the launches of one replay of a
-    captured program, which its wrappers did not see."""
-    for name, n in counts.items():
-        LAUNCHES[name] += n
 
 
 def build_seconds() -> Optional[float]:
@@ -181,6 +183,23 @@ def check(err: int, name: str) -> None:
     """Raise when a C entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def device_guard(device: torch.device):
+    """``torch.cuda.device(device)`` for a CUDA device, a no-op context for
+    the CPU (see the module docstring)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` (C entry ``apc_<name>``) with ``args`` and the
+    current stream of ``device``, inside ``device_guard(device)``; raise
+    on a CUDA error, count the launch in ``LAUNCHES``."""
+    fn = getattr(load_library(), f"apc_{name}")
+    with device_guard(device):
+        err = fn(*args, stream_handle(device))
+    check(err, name)
+    LAUNCHES[name] += 1
 
 
 def stream_handle(device: torch.device) -> int:

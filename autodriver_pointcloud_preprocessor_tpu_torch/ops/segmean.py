@@ -82,18 +82,14 @@ def _launch_k1(entries: List[int], mask: torch.Tensor, mask_out: Optional[torch.
     """Launch K1 over the row table ``entries`` (4 ints a row: source row
     pointer, its stride between scans in words, output row pointer, its
     stride), 16 rows a launch; the first launch writes ``mask_out``."""
-    lib = _build.load_library()
-    stream = _build.stream_handle(mask.device)
     out_ptr = 0 if mask_out is None else mask_out.data_ptr()
     for start in range(0, len(entries), 4 * _MAX_ROWS):
         chunk = entries[start : start + 4 * _MAX_ROWS]
         rows = len(chunk) // 4
-        err = lib.apc_masked_compact(
-            struct.pack(f"{4 * rows}q", *chunk), rows, mask.data_ptr(),
-            out_ptr if start == 0 else 0, batch, n, capacity, stream,
+        _build.launch(
+            "masked_compact", mask.device, struct.pack(f"{4 * rows}q", *chunk), rows,
+            mask.data_ptr(), out_ptr if start == 0 else 0, batch, n, capacity,
         )
-        _build.check(err, "masked_compact")
-        _build.LAUNCHES["masked_compact"] += 1
 
 
 def _table_entries(src: torch.Tensor, out: torch.Tensor, batch: int, n: int,
@@ -234,12 +230,13 @@ def segmented_sums(values: torch.Tensor, run_start: torch.Tensor) -> torch.Tenso
         raise ValueError("segmented_sums: tensors must be on the CPU or one CUDA device")
     if not (values.is_contiguous() and run_start.is_contiguous()):
         raise ValueError("segmented_sums: tensors must be contiguous")
-    lib = _build.load_library()
+    return _launch_k2(values, run_start, batch, c, n)
+
+
+def _launch_k2(values: torch.Tensor, run_start: torch.Tensor, batch: int, c: int,
+               n: int) -> torch.Tensor:
+    """Launch K2 on contiguous device tensors; returns the sums."""
     out = torch.empty_like(values)  # the kernel writes every column
-    err = lib.apc_segmented_sums(
-        values.data_ptr(), run_start.data_ptr(), out.data_ptr(),
-        batch, c, n, _build.stream_handle(values.device),
-    )
-    _build.check(err, "segmented_sums")
-    _build.LAUNCHES["segmented_sums"] += 1
+    _build.launch("segmented_sums", values.device, values.data_ptr(), run_start.data_ptr(),
+                  out.data_ptr(), batch, c, n)
     return out

@@ -255,26 +255,30 @@ def window_stats(
             None if rad2 is None else rad2 * rad2,
         )
     _build.require_cuda("window_stats", *rows, sorted_valid)
-    lib = _build.load_library()
     # one radius, or one per scan: the kernel squares it (no host scalar
     # goes to the device here: its copy would synchronise the stream)
     rad = _per_scan(radius, batch, dev)
     rad2 = None if radius2 is None else _per_scan(radius2, batch, dev)
+    return _launch_k3(rows, sorted_valid, rad, rad2, k, window_blocks, direction, kmode, moments)
+
+
+def _launch_k3(rows, valid, rad, rad2, k, window_blocks, direction, kmode, moments):
+    """Launch K3 on contiguous device tensors (radii as ``_per_scan``
+    gives them); returns its outputs as ``window_stats`` does."""
+    shape, dev = rows[0].shape, rows[0].device
+    batch, n = (shape[0] if len(shape) == 2 else 1), shape[-1]
     mean = torch.empty(shape, dtype=torch.float32, device=dev)
     cnt = torch.empty(shape, dtype=torch.float32, device=dev)
     mom = torch.empty(shape[:-1] + (10, n), dtype=torch.float32, device=dev)
-    cnt2 = None if radius2 is None else torch.empty(shape, dtype=torch.float32, device=dev)
-    err = lib.apc_window_stats(
-        *(r.data_ptr() for r in rows), sorted_valid.data_ptr(),
+    cnt2 = None if rad2 is None else torch.empty(shape, dtype=torch.float32, device=dev)
+    _build.launch(
+        "window_stats", dev, *(r.data_ptr() for r in rows), valid.data_ptr(),
         rad.data_ptr(), int(rad.numel() > 1),
         None if rad2 is None else rad2.data_ptr(), int(rad2 is not None and rad2.numel() > 1),
         mean.data_ptr(), cnt.data_ptr(), mom.data_ptr(),
         None if cnt2 is None else cnt2.data_ptr(),
         batch, n, k, window_blocks, direction, _KMODES[kmode], int(moments),
-        _build.stream_handle(dev),
     )
-    _build.check(err, "window_stats")
-    _build.LAUNCHES["window_stats"] += 1
     return (mean, cnt, mom) if cnt2 is None else (mean, cnt, mom, cnt2)
 
 

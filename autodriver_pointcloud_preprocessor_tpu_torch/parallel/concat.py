@@ -9,10 +9,13 @@ the synchronizer import sits unused at pointcloud_preprocessor.py:102).
 
 The merge runs on the node's device: each sensor's padded buffer is
 SE(3)-transformed by its extrinsic and the buffers are concatenated along
-the point axis (``torch.cat``), eagerly, with no per-sensor host round
-trip. The extrinsics become device tensors once, when the node is made.
-Host-side sync (time matching) stays at the edges where the wall clock
-lives.
+the point axis (``torch.cat``), with no per-sensor host round trip. The
+extrinsics become device tensors once, when the node is made. On a CUDA
+card the merge is one captured program (``models/graphs.py``) a set of
+buffer capacities and attribute schemas, as the reference jits it; on the
+CPU it runs eagerly. The time rebase adds a host float and stays outside
+the program, as the reference keeps it outside its ``jit``. Host-side
+sync (time matching) stays at the edges where the wall clock lives.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from ..core.codec import pointcloud_to_dict
 from ..core.msg import PointCloud2, Time
 from ..core.scan import ScanBuffer, from_soa, resolve_device, to_soa
 from ..io.loader import soa_to_pointcloud2
+from ..models import graphs
 from ..ops.transform import se3_transform
 
 __all__ = [
@@ -239,7 +243,7 @@ class PointcloudConcatenatorNode:
                 rebased.append(buf)
             buffers = rebased
 
-        merged = concatenate_buffers(buffers, [self.extrinsics[t] for t in topics])
+        merged = self._merge(buffers, [self.extrinsics[t] for t in topics])
         out_soa = to_soa(merged, self._merged_meta(metas))
         stamp = max(m.header.stamp.to_float() for m in msgs)
         out = soa_to_pointcloud2(
@@ -247,6 +251,15 @@ class PointcloudConcatenatorNode:
         )
         self.pub.publish(out)
         self.frame_count += 1
+
+    def _merge(self, buffers: List[ScanBuffer], extrinsics: List[torch.Tensor]) -> ScanBuffer:
+        """``concatenate_buffers`` on the node's device: on a card, the
+        replay of the program for these buffers' capacities and attribute
+        schemas (its key; reference ``concat.py:240-250``)."""
+        if not graphs.captures(self.device):
+            return concatenate_buffers(buffers, extrinsics)
+        args = (buffers, extrinsics)
+        return graphs.program(("concat",), lambda: concatenate_buffers, *args)(*args)
 
     @staticmethod
     def _merged_meta(metas):

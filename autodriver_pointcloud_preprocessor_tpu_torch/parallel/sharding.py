@@ -26,9 +26,12 @@ Each site packs its values into one tensor, so a site is one collective.
 Masks travel as float32 or int32: gloo's reductions do not take bool.
 This module initialises no process group and picks no backend; the
 caller does (gloo for several ranks on one card or on the CPU, NCCL for
-one rank a card). Every function takes a leading batch axis: on a 2-D
-``('scan', 'point')`` mesh each rank's scans ride it, and the point
-collectives carry one packed value per scan on ``mesh.get_group('point')``.
+one rank a card). Over NCCL on a card each rank captures its step as one
+CUDA graph and replays it (``build_sharded_pipeline``, the reference's
+``jit``); over gloo the step runs eagerly (``captures_step``). Every
+function takes a leading batch axis: on a 2-D ``('scan', 'point')`` mesh
+each rank's scans ride it, and the point collectives carry one packed
+value per scan on ``mesh.get_group('point')``.
 """
 from __future__ import annotations
 
@@ -44,7 +47,14 @@ from torch.distributed.tensor import Shard
 
 from .. import ops
 from ..core.scan import ScanBuffer
-from ..models.pipeline import PipelineParams, PipelineSettings, _check_supported, _select_scans
+from ..models import graphs
+from ..models.pipeline import (
+    PipelineParams,
+    PipelineSettings,
+    _check_supported,
+    _select_scans,
+    draw_uniforms,
+)
 from ..ops.compact import gather_columns
 from ..ops.ground import _fit_planes_batched
 from ..ops.linalg import normals_from_entries, smallest_eigvec_entries
@@ -60,6 +70,8 @@ __all__ = [
     "COLLECTIVES",
     "buffer_pspecs",
     "build_sharded_pipeline",
+    "captures_step",
+    "draw_local_uniforms",
     "make_local_run",
     "make_mesh",
     "reset_collectives",
@@ -541,12 +553,10 @@ def _local_stages(settings: PipelineSettings, axis: _Axis, halo: int):
                 return ops.subsample_to(b, local_cap), None
             # the voxel output is front-compacted: a prefix slice within
             # the share, the unbiased hash subsample on overflow, scan by
-            # scan (one host read decides for a batch)
-            live = b.mask.sum(-1)
-            front = ops.shrink_front(b, local_cap)
-            if int(live.max()) <= local_cap:
-                return front, None
-            return _select_scans(live > local_cap, ops.subsample_to(b, local_cap), front), None
+            # scan. Both run and a select on the device picks (the
+            # reference's ``lax.cond``), so no host read decides
+            return _select_scans(b.mask.sum(-1) > local_cap, ops.subsample_to(b, local_cap),
+                                 ops.shrink_front(b, local_cap)), None
 
         shrink_stage = ("shrink", shrink)
         # under ground_first the shrink waits until after ground, so that
@@ -636,16 +646,74 @@ def make_local_run(
     return run
 
 
-@functools.lru_cache(maxsize=32)
+def draw_local_uniforms(
+    settings: PipelineSettings,
+    axis_size: int,
+    batch_shape: tuple,
+    capacity: int,
+    generator: Optional[torch.Generator],
+    device: torch.device,
+    ground_uniforms: Optional[torch.Tensor] = None,
+    downsample_uniforms: Optional[torch.Tensor] = None,
+):
+    """One rank's random inputs, drawn ahead of its step:
+    ``pipeline.draw_uniforms`` for ``make_local_run``'s ``run``, whose
+    RANSAC fits ``max(num_iterations // axis_size, 1)`` hypotheses a rank
+    and whose random downsampler draws at the slab's ``capacity`` (the
+    local run has no pre-voxel bucket)."""
+    local = dataclasses.replace(
+        settings, num_iterations=max(settings.num_iterations // axis_size, 1),
+        pre_voxel_compact_capacity=0)
+    return draw_uniforms(local, batch_shape, capacity, generator, device, ground_uniforms,
+                         downsample_uniforms)
+
+
+def captures_step(group: dist.ProcessGroup, device: torch.device) -> bool:
+    """Whether the sharded step on ``device`` runs as one captured program:
+    only with an NCCL group on a CUDA card (``graphs.captures``), whose
+    collectives are device work that a CUDA graph holds. Gloo's
+    collectives on card tensors are host round trips, which no graph can
+    hold, so a gloo group runs its steps eagerly; so does the CPU."""
+    return graphs.captures(device) and dist.get_backend(group) == dist.Backend.NCCL
+
+
+def _group_tag(group: dist.ProcessGroup) -> tuple:
+    """A process group's identity: its name (unique in the process), its
+    ranks and its backend. ``DeviceMesh`` equality compares ranks and
+    shapes only, so two meshes over different groups of the same ranks
+    are equal; their steps must not share a cached run or a program."""
+    return (group.group_name, tuple(dist.get_process_group_ranks(group)),
+            str(dist.get_backend(group)))
+
+
 def build_sharded_pipeline(
     settings: PipelineSettings, mesh: DeviceMesh, axis_name: str = "point", halo: int = 512,
 ):
     """The sharded pipeline over ``mesh``'s ``axis_name`` axis (cached per
-    arguments): ``make_local_run``'s ``run``, same stage order and
-    semantics as ``models/pipeline.build_pipeline`` with the cross-shard
-    stages swapped in. Its input is this rank's ``shard_buffer`` slab.
+    arguments), the reference's ``jax.jit(shard_map(local_run))``: a
+    callable with ``make_local_run``'s ``run`` signature, same stage order
+    and semantics as ``models/pipeline.build_pipeline`` with the
+    cross-shard stages swapped in. Its input is this rank's
+    ``shard_buffer`` slab.
+
+    Where ``captures_step`` holds (an NCCL group, a CUDA card: one rank a
+    card), a call draws the step's uniforms ahead (``draw_local_uniforms``)
+    and replays one captured program (``models/graphs.py``) a (settings,
+    axis name, halo, group, input shapes), which this rank captures on its
+    own card at the first call; a replay credits the kernel launches and
+    ``COLLECTIVES`` that its capture counted. A failed capture raises. On
+    a gloo group, and on the CPU, the call runs ``run`` eagerly. A
+    captured collective holds the group's communicator: drop the programs
+    (``graphs.clear()``) before ``destroy_process_group``.
+
     Warns when ``post_downsample_capacity`` does not split into 512-row
     shares, which inflates the effective global cap."""
+    return _sharded_step(settings, mesh, axis_name, halo, _group_tag(mesh.get_group(axis_name)))
+
+
+@functools.lru_cache(maxsize=32)
+def _sharded_step(settings, mesh, axis_name, halo, group_tag):
+    """``build_sharded_pipeline``, cached per arguments and group."""
     cap = settings.post_downsample_capacity
     n_shards = _axis_size(mesh, axis_name)
     if cap > 0 and cap % (512 * n_shards) != 0:
@@ -657,6 +725,24 @@ def build_sharded_pipeline(
             f"post_downsample_capacity={cap} is not a multiple of "
             f"512 * {n_shards} point-shards; the sharded pipeline caps "
             f"per shard, making the effective global cap {eff}",
-            stacklevel=2,
+            stacklevel=3,
         )
-    return make_local_run(settings, axis_name, halo, mesh)
+    run = make_local_run(settings, axis_name, halo, mesh)
+    group = mesh.get_group(axis_name)
+    tag = ("sharded", settings, axis_name, halo, group_tag)
+
+    def step(local_buf: ScanBuffer, params: PipelineParams,
+             generator: Optional[torch.Generator] = None,
+             ground_uniforms: Optional[torch.Tensor] = None,
+             downsample_uniforms: Optional[torch.Tensor] = None):
+        if not captures_step(group, local_buf.device):
+            return run(local_buf, params, generator, ground_uniforms, downsample_uniforms)
+        draws = draw_local_uniforms(settings, n_shards, local_buf.batch_shape,
+                                    local_buf.capacity, generator, local_buf.device,
+                                    ground_uniforms, downsample_uniforms)
+        args = (local_buf, params, draws)
+        prog = graphs.program(tag, lambda: lambda b, p, d: run(b, p, None, *d), *args,
+                              counters=(COLLECTIVES,))
+        return prog(*args)
+
+    return step

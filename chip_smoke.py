@@ -159,6 +159,16 @@ The sharded pipeline (``parallel.sharding``), ranks started with
     0.985 at 512); a world of one rank a card over NCCL bit-equal to the
     same world over gloo. Times are rank 0's CUDA events with a barrier
     before each step, 4 ranks time-sharing one card: not a scaling figure.
+    The gloo ranks run eagerly (``sharding.captures_step``). Then the
+    step as one captured program: an NCCL world of
+    ``torch.cuda.device_count()`` ranks, one a card (with one card, config
+    6's whole cloud at 1,048,576 on one rank), and of 4 ranks when there
+    are 4 cards or more (else it prints that it did not run): on every
+    rank the captured step bit-equal to the eager body
+    (``make_local_run``) with the same draws, on the capture's draws and
+    on others, launches 0/1/2 a step and the collectives a step equal
+    both ways (the replay credits them), p50 and p90 a step captured and
+    eager in turns, capture ms and pool MB.
 
 Captured programs (``models/graphs.py``): on the card the engine's
 production mode (``Preprocessor`` with ``profile=False``) and the
@@ -181,7 +191,20 @@ replay credits; ``build_pipeline`` calls stay eager.
     capture: each replay bit-equal to a fresh eager engine's run. Config
     5 replays single and ``batch=20``: blobs byte-equal to the eager
     engine's, ms a revolution. The pipelined node's clouds against the
-    static node's are phase (t)'s check, on replays.
+    static node's are phase (t)'s check, on replays. Profile mode:
+    production and config 2 replay one program a stage, each replay
+    bit-equal to the stage run eagerly with the same draws (profile mode
+    runs duplicates and the radius filter as stages of their own, as the
+    reference does, so it is held to its own eager run, not to the
+    production mode's output), with equal launches, and the per-stage ms
+    replayed and eager. Phase (u)'s round with the concatenator's merge
+    replayed and with the merge run eagerly, in turns: merged clouds
+    byte-equal, round ms, a traced round's launches and syncs. With two
+    cards or more, an engine on cuda:1 while cuda:0 is current, graphed
+    and eager, bit-equal to one on cuda:0 (else it prints that it did not
+    run). The cache's byte bound: the vmapped production program captured
+    at B = 1..16, the pools and the memory reserved within the bound
+    after each capture, evicted programs gone.
 
 With ``--profile DIR`` it also traces, with torch.profiler, 5 single scans
 and one vmapped batch of the production preset and of config 2, 5
@@ -208,6 +231,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -364,9 +388,23 @@ def bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
+def event_counts(events) -> dict:
+    """Kernel launches, graph launches and syncs on the host, and device
+    ms, in a torch.profiler trace's ``key_averages()``."""
+    def count(key):
+        return sum(e.count for e in events if e.key == key)
+
+    return {"cudaLaunchKernel": count("cudaLaunchKernel"), "cudaGraphLaunch": count("cudaGraphLaunch"),
+            "cudaStreamSynchronize": count("cudaStreamSynchronize"),
+            "device_ms": sum(e.self_device_time_total for e in events
+                             if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3}
+
+
 def profile_runs(runs, dev, out_dir: str):
-    """Trace each ``(tag, fn)`` of ``runs`` with torch.profiler; write the
-    time per operator (device and host) of each to ``out_dir/profile.txt``."""
+    """Trace each ``(tag, fn)`` of ``runs`` with torch.profiler, after one
+    untraced call (which captures again a program the cache dropped:
+    phase (x) clears it); write the time per operator (device and host) of
+    each to ``out_dir/profile.txt``."""
     import os
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -376,22 +414,19 @@ def profile_runs(runs, dev, out_dir: str):
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "profile.txt"), "w") as f:
         for tag, fn in runs:
+            fn()
+            torch.cuda.synchronize()
             w0 = time.perf_counter()
             with torch.profiler.profile(activities=acts) as prof:
                 fn()
                 torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - w0) * 1e3
             events = prof.key_averages()
-            device_ms = sum(
-                e.self_device_time_total for e in events
-                if e.device_type == torch.autograd.DeviceType.CUDA
-            ) / 1e3
-            launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
-            graph_launches = sum(e.count for e in events if e.key == "cudaGraphLaunch")
-            syncs = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
-            line = (f"{tag}: wall {wall_ms:.3f} ms (traced), device busy {device_ms:.3f} ms "
-                    f"({100 * device_ms / wall_ms:.1f}%), {launches} cudaLaunchKernel, "
-                    f"{graph_launches} cudaGraphLaunch, {syncs} cudaStreamSynchronize")
+            c = event_counts(events)
+            line = (f"{tag}: wall {wall_ms:.3f} ms (traced), device busy {c['device_ms']:.3f} ms "
+                    f"({100 * c['device_ms'] / wall_ms:.1f}%), {c['cudaLaunchKernel']} "
+                    f"cudaLaunchKernel, {c['cudaGraphLaunch']} cudaGraphLaunch, "
+                    f"{c['cudaStreamSynchronize']} cudaStreamSynchronize")
             f.write(line + "\n\n")
             f.write(events.table(sort_by="self_device_time_total", row_limit=40))
             f.write("\n\n")
@@ -1731,7 +1766,8 @@ def node_slice(dev, production_cfg):
     for ln in lines:
         print(f"[chip_smoke] (v) warmup_main: {ln}")
     print(f"[chip_smoke] (v) warmup_main {time.perf_counter() - w0:.2f} s ({time.perf_counter() - t0:.1f} s)")
-    return {"launches": launches, "timings": timings, "profile": profile}
+    return {"launches": launches, "timings": timings, "profile": profile,
+            "round": {"run": graph_round, "concat": concat, "merged": merged}}
 
 
 # ---- the sharded pipeline: config 6 over 4 ranks (phase (w)) --------------
@@ -1842,6 +1878,7 @@ def shard_job_card(r: ShardRank, profile_dir=None):
     sh = r.sh
     buf, settings, params, draws = config6_step_inputs(r)
     run = sh.build_sharded_pipeline(settings, r.mesh, "point", SHARD_HALO)
+    check(not sh.captures_step(r.group, r.dev), "(w) a gloo step would capture")
 
     def step():
         out, plane = run(sh.shard_buffer(buf, r.mesh), params, None, draws)
@@ -1950,8 +1987,9 @@ def shard_job_card(r: ShardRank, profile_dir=None):
             profile_runs([("sharded config 6: 1 step, rank 0 of 4", step)], r.dev,
                          os.path.join(profile_dir, "sharded"))
         else:
-            step()
-            torch.cuda.synchronize()
+            for _ in range(2):  # profile_runs' untraced call and its traced one
+                step()
+                torch.cuda.synchronize()
 
     # the production-slab protocol: keep-masks against the unsharded
     # port's in the same (spatially sorted) frame
@@ -1997,7 +2035,97 @@ def shard_job_backend(r: ShardRank, profile_dir=None):
     r.save_output("slab", out, plane)
 
 
-SHARD_JOBS = {"card": shard_job_card, "cpu": shard_job_cpu, "backend": shard_job_backend}
+def shard_job_captured(r: ShardRank, profile_dir=None):
+    """Config 6's step in an NCCL world, one rank a card:
+    ``build_sharded_pipeline``'s captured step against ``make_local_run``'s
+    eager body with the same draws, bit for bit (mask, positions,
+    attributes, normals, plane), with the same launches and collectives a
+    step (the replay's credited), on the capture's draws and on others;
+    then both timed in turns (rank 0's CUDA events, a barrier before each
+    step, the run alone on the sharded slab)."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.models import graphs
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops import _build
+
+    sh = r.sh
+    buf, settings, params, draws = config6_step_inputs(r)
+    check(sh.captures_step(r.group, r.dev), f"(w) NCCL rank {r.rank}: the step would not capture")
+    step = sh.build_sharded_pipeline(settings, r.mesh, "point", SHARD_HALO)
+    eager = sh.make_local_run(settings, "point", SHARD_HALO, r.mesh)
+    local = sh.shard_buffer(buf, r.mesh)
+    step_launches = [0] * len(KERNELS)
+
+    def run_step(u):
+        before = [_build.LAUNCHES[k] for k in KERNELS]
+        out = step(local, params, None, u)
+        for i, k in enumerate(KERNELS):
+            step_launches[i] += _build.LAUNCHES[k] - before[i]
+        return out
+
+    def counted(fn, u):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        sh.reset_collectives()
+        out = fn(u)
+        torch.cuda.synchronize()
+        return out, tuple(_build.LAUNCHES[k] for k in KERNELS), dict(sh.COLLECTIVES)
+
+    t0 = time.perf_counter()
+    for i, u in enumerate((draws, draws.flip(0))):  # the capture and a replay, a replay on others
+        got = counted(run_step, u)
+        if i == 0:
+            first_s = time.perf_counter() - t0
+        want = counted(lambda u: eager(local, params, None, u), u)
+        check(same_tree(got[0], want[0]),
+              f"(w) NCCL rank {r.rank} of {r.world}: the captured step differs from the eager one")
+        check(got[1] == want[1] == SHARD_LAUNCHES,
+              f"(w) NCCL rank {r.rank}: launches captured {got[1]}, eager {want[1]}")
+        check(got[2] == want[2], f"(w) NCCL rank {r.rank}: collectives {got[2]} vs {want[2]}")
+    prog = graphs.programs()[-1]
+    check(prog.replays == 2, f"(w) NCCL rank {r.rank}: {prog.replays} replays of the step's program")
+
+    def timed(fn, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            torch.distributed.barrier()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        return out
+
+    half = SHARD_TIMED // 2
+    tg = timed(lambda: run_step(draws), half)
+    te = timed(lambda: eager(local, params, None, draws), SHARD_TIMED)
+    tg += timed(lambda: run_step(draws), SHARD_TIMED - half)
+    if profile_dir:  # one traced step each way on rank 0 (every rank runs them)
+        import os
+
+        runs = [(f"sharded config 6 captured: 1 step, rank 0 of {r.world} NCCL",
+                 lambda: run_step(draws)),
+                (f"sharded config 6 eager: 1 step, rank 0 of {r.world} NCCL",
+                 lambda: eager(local, params, None, draws))]
+        if r.rank == 0:
+            profile_runs(runs, r.dev, os.path.join(profile_dir, f"sharded_nccl{r.world}"))
+        else:
+            for _, fn in runs:
+                for _ in range(2):  # profile_runs' untraced call and its traced one
+                    fn()
+                    torch.cuda.synchronize()
+    if r.rank == 0:  # at once: the world's later collectives and teardown can still fail
+        print(f"[chip_smoke] (w) NCCL rank 0 of {r.world}: captured p50/p90 "
+              f"{p50_p90(tg)} ms, eager {p50_p90(te)} ms", flush=True)
+    r.info["captured"] = dict(
+        captured_ms=tg, eager_ms=te, capture_ms=prog.capture_ms, first_call_s=first_s,
+        pool_mb=prog.pool_bytes / 2**20, launches_a_step=got[1], collectives_a_step=got[2],
+        launches=step_launches, live_out=int(got[0][0].mask.sum()), capacity=local.capacity)
+    r.save_output("captured", *got[0])
+
+
+SHARD_JOBS = {"card": shard_job_card, "cpu": shard_job_cpu, "backend": shard_job_backend,
+              "captured": shard_job_captured}
 
 
 def shard_rank(rank, world, backend, device, store, out_dir, job, profile_dir):
@@ -2020,6 +2148,13 @@ def shard_rank(rank, world, backend, device, store, out_dir, job, profile_dir):
         SHARD_JOBS[job](r, profile_dir)
         r.write()
     finally:
+        # a captured NCCL collective holds its communicator: drop the
+        # programs before the group
+        from autodriver_pointcloud_preprocessor_tpu_torch.models import graphs
+
+        graphs.clear()
+        if device.startswith("cuda"):
+            torch.cuda.synchronize()
         torch.distributed.destroy_process_group()
 
 
@@ -2144,10 +2279,41 @@ def sharded_slice(dev, profile_dir=None):
           f"({nsec:.1f} s and {gsec:.1f} s)")
     if n_cards == 1:
         check(same, "(w) the NCCL world's output differs from the gloo world's")
+
+    # the step as one captured program: NCCL worlds of one rank a card
+    # (config 6's whole cloud on one card when there is one), and of 4
+    # ranks on 4 cards; the gloo ranks above ran eagerly
+    captured_runs, captured_launches = {}, [0] * len(KERNELS)
+    for world in (sorted({n_cards, 4}) if n_cards >= 4 else [n_cards]):
+        ci, _, csec = spawn_world("captured", world, "nccl", "cuda:{rank}", profile_dir)
+        c0 = ci[0]["captured"]
+        g50, g90 = p50_p90(c0["captured_ms"])
+        e50, e90 = p50_p90(c0["eager_ms"])
+        captured_runs[f"nccl_{world}"] = {
+            "captured_ms": [g50, g90], "eager_ms": [e50, e90], "capture_ms": c0["capture_ms"],
+            "first_call_s": c0["first_call_s"], "pool_mb": c0["pool_mb"],
+            "points_a_rank": c0["capacity"], "collectives_a_step": c0["collectives_a_step"]}
+        for info in ci:
+            captured_launches = [a + b for a, b in zip(captured_launches, info["captured"]["launches"])]
+        print(f"[chip_smoke] (w) captured step, NCCL world of {world} (one rank a card, "
+              f"{c0['capacity']:,} points a rank): every rank bit-equal to its eager step on two "
+              f"draws, launches {c0['launches_a_step']} a step both ways, collectives a step "
+              f"{json.dumps(c0['collectives_a_step'])} both ways (credited by the replay); rank 0 "
+              f"p50/p90 captured {g50:.3f}/{g90:.3f} ms, eager {e50:.3f}/{e90:.3f} ms (in turns, "
+              f"{SHARD_TIMED} each); capture {c0['capture_ms']:.1f} ms (first call "
+              f"{c0['first_call_s']:.2f} s), pool {c0['pool_mb']:.1f} MB; "
+              f"{c0['live_out']} survivors on rank 0 ({csec:.1f} s)")
+    if n_cards < 4:
+        print(f"[chip_smoke] (w) the 4-rank NCCL world (one rank a card) did not run: "
+              f"{n_cards} card(s) here")
+    print(f"[chip_smoke] (w) the {SHARD_WORLD} gloo ranks on cuda:0 ran eagerly "
+          f"(sharding.captures_step: gloo's collectives are host round trips)")
     return {
         "launches": {"sharded": dict(zip(KERNELS, (sum(i["launches"][k] for i in infos)
-                                                   for k in range(len(KERNELS)))))},
-        "timings": {"sharded": {"p50_ms": p50, "p90_ms": p90, "steps": len(times), "label": label}},
+                                                   for k in range(len(KERNELS))))),
+                     "sharded_captured": dict(zip(KERNELS, captured_launches))},
+        "timings": {"sharded": {"p50_ms": p50, "p90_ms": p90, "steps": len(times), "label": label},
+                    "sharded_captured": captured_runs},
         "kernels": {"segmented_sums": infos[0]["k2"], "window_stats": infos[0]["k3"]},
         "collectives": coll,
     }
@@ -2200,10 +2366,250 @@ def p50_p90(times) -> tuple:
     return float(np.median(times)), float(np.percentile(times, 90))
 
 
-def graph_slice(dev, production_cfg):
+def trace_counts(fn) -> dict:
+    """``event_counts`` of one call of ``fn`` under torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return event_counts(prof.key_averages())
+
+
+def profile_stage_paths(dev, production_cfg, counts):
+    """Phase (x): production and config 2 in profile mode, one replayed
+    program a stage, against the same stages run eagerly with the same
+    draws, bit for bit with equal launches; the per-stage ms (the engine's
+    ``processing_times``, median of ``TIMED`` scans) replayed and eager
+    (``graphs.captures`` off), in turns."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.core import from_soa
+    from autodriver_pointcloud_preprocessor_tpu_torch.models import graphs
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import (
+        draw_uniforms, stage_functions,
+    )
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.preprocessor import Preprocessor
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops import _build
+
+    paths, launches = {}, {}
+    graphs.clear()  # the engine phase's profile run captured these stages already
+    for tag, cfg, soa in (("profile_production", production_cfg, bench_soa()),
+                          ("profile_config2", CONFIG2, soa_positions())):
+        t0 = time.perf_counter()
+        engine = Preprocessor(cfg, profile=True, seed=0)
+        s = engine.settings
+        gu = torch.from_numpy(np.random.default_rng(7).uniform(
+            size=(s.num_iterations, s.ransac_n)).astype(np.float32)).to(dev)
+        buf, _ = from_soa(soa, capacity=CAPACITY, device=dev)
+        stages = stage_functions(s, separate_stages=True)
+        draws = draw_uniforms(s, (), CAPACITY, None, dev, gu)
+        before = len(graphs.programs())
+        for i in range(2):  # the captures, then the replays
+            _build.reset_launches()
+            got = engine.process_buffer(buf, gu)
+            torch.cuda.synchronize()
+            graphed = counts()
+            _build.reset_launches()
+            want, plane = buf, torch.full((4,), float("nan"), device=dev)
+            for _, fn in stages:
+                want, aux = fn(want, engine.params, None, *draws)
+                plane = plane if aux is None else aux
+            torch.cuda.synchronize()
+            check(graphed == counts(), f"(x) {tag}: launches replayed {graphed}, eager {counts()}")
+            check(same_tree(got, (want, plane)), f"(x) {tag}: a replay differs from the eager stages")
+        check(len(graphs.programs()) - before == len(stages),
+              f"(x) {tag}: {len(graphs.programs()) - before} programs for {len(stages)} stages")
+        eager_engine = Preprocessor(cfg, profile=True, seed=0)
+        captures = graphs.captures
+
+        def stage_ms(eng, eager, n):
+            graphs.captures = (lambda device: False) if eager else captures
+            try:
+                runs = []
+                for _ in range(n):
+                    eng.process_buffer(buf, gu)
+                    runs.append(dict(eng.processing_times))
+            finally:
+                graphs.captures = captures
+            return runs
+
+        half = TIMED // 2
+        rg = stage_ms(engine, False, half)
+        re_ = stage_ms(eager_engine, True, TIMED)
+        rg += stage_ms(engine, False, TIMED - half)
+        keys = list(rg[0])
+        per_stage = {k: [float(np.median([r[k] for r in rg])) * 1e3,
+                         float(np.median([r[k] for r in re_])) * 1e3] for k in keys}
+        paths[tag] = {"stage_ms_replayed_eager": per_stage, "stages": len(stages), "timed": TIMED}
+        launches[f"graph_{tag}"] = graphed
+        print(f"[chip_smoke] (x) {tag}: {len(stages)} stage programs, each replay bit-equal to the "
+              f"stage run eagerly with the same draws, launches {json.dumps(graphed)} a scan both "
+              f"ways; stage ms (median of {TIMED}, a sync after each) replayed / eager: "
+              + ", ".join(f"{k} {a:.3f}/{b:.3f}" for k, (a, b) in per_stage.items())
+              + f" ({time.perf_counter() - t0:.1f} s)")
+    return paths, launches
+
+
+def merge_round(round_handle):
+    """Phase (x): the three-sensor round of phase (u) with the
+    concatenator's merge replayed (its default on the card) and with the
+    merge run eagerly, in turns: the merged clouds byte-equal, round ms
+    p50 and p90 both ways, launches, graph launches and syncs of a round
+    (torch.profiler)."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.models import graphs
+    from autodriver_pointcloud_preprocessor_tpu_torch.parallel.concat import concatenate_buffers
+
+    t0 = time.perf_counter()
+    run, concat, merged = round_handle["run"], round_handle["concat"], round_handle["merged"]
+    rounds = iter(range(1000, 2000))
+
+    def one(eager):
+        if eager:  # the instance's merge shadowed by the plain function
+            concat._merge = concatenate_buffers
+        try:
+            ms, _ = run(next(rounds))
+        finally:
+            concat.__dict__.pop("_merge", None)
+        return ms, merged[-1].data
+
+    _, replayed = one(False)
+    prog = graphs.programs()[-1]  # the merge runs after the three nodes' replays
+    check(prog.credits == dict.fromkeys(KERNELS, 0) and prog.replays > 0,
+          f"(x) the round's last program is not the merge's: credits {prog.credits}")
+    _, eager = one(True)
+    check(replayed == eager, "(x) the round's merged cloud replayed differs from the eager merge's")
+    half = GRAPH_ROUNDS // 2
+    tg = [one(False)[0] for _ in range(half)]
+    te = [one(True)[0] for _ in range(GRAPH_ROUNDS)]
+    tg += [one(False)[0] for _ in range(GRAPH_ROUNDS - half)]
+    traced = {"replayed": trace_counts(lambda: one(False)), "eager": trace_counts(lambda: one(True))}
+    row = {"round_ms_replayed": p50_p90(tg), "round_ms_eager": p50_p90(te),
+           "capture_ms": prog.capture_ms, "pool_mb": prog.pool_bytes / 2**20, "traced": traced}
+    print(f"[chip_smoke] (x) three-sensor round, the merge replayed vs eager: merged clouds "
+          f"byte-equal; ms a round p50/p90 replayed {row['round_ms_replayed'][0]:.3f}/"
+          f"{row['round_ms_replayed'][1]:.3f}, eager {row['round_ms_eager'][0]:.3f}/"
+          f"{row['round_ms_eager'][1]:.3f} (host clock, publish to blob, {GRAPH_ROUNDS} each in "
+          f"turns); a traced round {json.dumps(traced)}; merge capture {prog.capture_ms:.1f} ms, "
+          f"pool {prog.pool_bytes / 2**20:.1f} MB ({time.perf_counter() - t0:.1f} s)")
+    return row
+
+
+def cache_bound(dev, production_cfg):
+    """Phase (x), fault 15: the vmapped production program captured at B =
+    1..16 on an empty cache. After each capture the pools of the cached
+    programs stay within ``POOL_FRACTION`` of the card, the memory
+    reserved since the start within that bound plus one program's pool,
+    and every evicted program is gone (``programs()``, ``lookup``). Also
+    whether dropping a program hands its pool back without
+    ``torch.cuda.empty_cache``."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.core import from_soa
+    from autodriver_pointcloud_preprocessor_tpu_torch.models import graphs
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import draw_uniforms
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.preprocessor import Preprocessor
+
+    t0 = time.perf_counter()
+    engine = Preprocessor(production_cfg, seed=0)
+    s = engine.settings
+    scans = [from_soa(bench_soa(seed), capacity=CAPACITY, device=dev)[0] for seed in range(16)]
+    u = torch.from_numpy(np.random.default_rng(5).uniform(
+        size=(16, s.num_iterations, s.ransac_n)).astype(np.float32)).to(dev)
+
+    def key_args(b):
+        return (scans[:b], engine.params, draw_uniforms(s, (b,), CAPACITY, None, dev, u[:b]))
+
+    # does a dropped program give its pool back by itself?
+    graphs.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved(dev)
+    engine.process_batch(scans[:8], ground_uniforms=u[:8])
+    r1 = torch.cuda.memory_reserved(dev)
+    graphs.clear()
+    r2 = torch.cuda.memory_reserved(dev)
+    torch.cuda.empty_cache()
+    r3 = torch.cuda.memory_reserved(dev)
+    release = {"captured_mb": (r1 - r0) / 2**20, "after_drop_mb": (r2 - r0) / 2**20,
+               "after_empty_cache_mb": (r3 - r0) / 2**20}
+
+    print(f"[chip_smoke] (x) fault 15: a dropped B=8 program: reserved +{release['captured_mb']:.1f} "
+          f"MB with it, +{release['after_drop_mb']:.1f} MB after dropping it, "
+          f"+{release['after_empty_cache_mb']:.1f} MB after empty_cache")
+    total = torch.cuda.mem_get_info(dev)[1]
+    bound = graphs.POOL_FRACTION * total
+    base = torch.cuda.memory_reserved(dev)
+    print(f"[chip_smoke] (x) fault 15: B=1..16 vmapped production programs, bound "
+          f"{bound / 2**20:.1f} MB ({graphs.POOL_FRACTION} of {total / 2**30:.1f} GiB)")
+    progs, rows = {}, []  # weak: a reference here would keep an evicted pool alive
+    for b in range(1, 17):
+        engine.process_batch(scans[:b], ground_uniforms=u[:b])
+        torch.cuda.synchronize()
+        prog = graphs.lookup(("engine", "vmapped", s), key_args(b))
+        check(prog is not None, f"(x) fault 15: no program at B={b}")
+        progs[b] = weakref.ref(prog)
+        cached = graphs.programs()
+        held = sum(p.pool_bytes for p in cached)
+        reserved = torch.cuda.memory_reserved(dev) - base
+        gone = [k for k, ref in progs.items() if all(ref() is not q for q in cached)]
+        row = {"b": b, "pool_mb": prog.pool_bytes / 2**20, "cached": len(cached),
+               "held_mb": held / 2**20, "reserved_mb": reserved / 2**20, "evicted": gone,
+               "evicted_alive": [k for k in gone if progs[k]() is not None]}
+        rows.append(row)
+        print(f"[chip_smoke] (x) fault 15: B={b} {json.dumps(row)}")
+        for k in gone:
+            check(graphs.lookup(("engine", "vmapped", s), key_args(k)) is None,
+                  f"(x) fault 15: the evicted B={k} program is still found")
+        check(held <= bound or len(cached) == 1,
+              f"(x) fault 15: at B={b} the pools hold {held} bytes over the bound {bound:.0f}")
+        check(reserved <= bound + prog.pool_bytes,
+              f"(x) fault 15: at B={b} {reserved} bytes reserved, over the bound {bound:.0f} plus "
+              f"the new pool {prog.pool_bytes}")
+        del prog, cached
+    print(f"[chip_smoke] (x) fault 15 took {time.perf_counter() - t0:.1f} s")
+    graphs.clear()
+    torch.cuda.empty_cache()
+    return {"bound_mb": bound / 2**20, "steps": rows, "release": release}
+
+
+def second_card(dev, production_cfg):
+    """Phase (x), fault 14: with two cards or more, production engines on
+    cuda:1 and on cuda:0 while cuda:0 is current, each graphed and eager
+    on the same scan and draws: all four outputs bit-equal."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.core import from_soa
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import (
+        build_pipeline, draw_uniforms,
+    )
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.preprocessor import Preprocessor
+    from torch.utils._pytree import tree_map
+
+    if torch.cuda.device_count() < 2:
+        print(f"[chip_smoke] (x) fault 14 (an engine on cuda:1 while cuda:0 is current) did not "
+              f"run: {torch.cuda.device_count()} card here")
+        return None
+    torch.cuda.set_device(dev)
+    outs = {}
+    for d in (dev, torch.device("cuda:1")):
+        engine = Preprocessor(production_cfg, seed=0, device=d)
+        s = engine.settings
+        gu = torch.from_numpy(np.random.default_rng(7).uniform(
+            size=(s.num_iterations, s.ransac_n)).astype(np.float32)).to(d)
+        buf, _ = from_soa(bench_soa(), capacity=CAPACITY, device=d)
+        graphed = [engine.process_buffer(buf, gu) for _ in range(2)]
+        eager = build_pipeline(s)(buf, engine.params, None, *draw_uniforms(s, (), CAPACITY, None, d, gu))
+        check(torch.cuda.current_device() == dev.index, "(x) fault 14: the current device moved")
+        outs[str(d)] = tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t,
+                                (graphed[0], graphed[1], eager))
+    a, b = outs.values()
+    check(all(same_tree(x, y) for x, y in zip(a, b)) and same_tree(a[0], a[2]),
+          "(x) fault 14: the engine on cuda:1 differs from the one on cuda:0")
+    print("[chip_smoke] (x) fault 14: an engine on cuda:1 with cuda:0 current, graphed (capture and "
+          "replay) and eager: bit-equal to the engine on cuda:0")
+    return True
+
+
+def graph_slice(dev, production_cfg, round_handle):
     """Phase (x): every engine path as a captured program against the same
-    path run eagerly with the same draws (see the module docstring).
-    Returns each path's numbers and launch counts, and the profile runs."""
+    path run eagerly with the same draws (see the module docstring), then
+    profile mode's stage programs, the round's merge, the cache's byte
+    bound and a second card. Returns each path's numbers and launch
+    counts, and the profile runs."""
     from autodriver_pointcloud_preprocessor_tpu_torch.core import from_soa, stack_buffers, to_soa
     from autodriver_pointcloud_preprocessor_tpu_torch.io.pcap import _read_payloads
     from autodriver_pointcloud_preprocessor_tpu_torch.io.streaming import StreamingEngine
@@ -2445,8 +2851,15 @@ def graph_slice(dev, production_cfg):
         revs = revolutions(*_read_payloads(path))[:5]
         profile.append(("(x) streaming config 5 graphed: 5 revolutions",
                         lambda: [graphed_engine.process_scan_packets(*r) for r in revs]))
-    print(f"[chip_smoke] (x) streaming took {time.perf_counter() - t0:.1f} s; phase (x) "
-          f"{time.perf_counter() - t_all:.1f} s, {len(graphs.programs())} programs cached")
+    print(f"[chip_smoke] (x) streaming took {time.perf_counter() - t0:.1f} s")
+
+    stage_paths, stage_launches = profile_stage_paths(dev, production_cfg, counts)
+    paths.update(stage_paths)
+    launches.update(stage_launches)
+    paths["round_merge"] = merge_round(round_handle)
+    paths["second_card"] = second_card(dev, production_cfg)
+    paths["cache_bound"] = cache_bound(dev, production_cfg)
+    print(f"[chip_smoke] (x) phase (x) took {time.perf_counter() - t_all:.1f} s")
     return {"paths": paths, "launches": launches, "profile": profile}
 
 
@@ -2842,7 +3255,7 @@ def main() -> None:
     slice7 = sharded_slice(dev, profile_dir)
 
     # ---- captured programs against eager runs ----------------------------
-    slice8 = graph_slice(dev, cfg)
+    slice8 = graph_slice(dev, cfg, slice6["round"])
 
     if "--profile" in sys.argv:
         def single():

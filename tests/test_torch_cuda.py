@@ -942,3 +942,132 @@ def test_replay_credits_the_launches_the_profiler_sees(cuda):
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     seen = {k: sum(f"{k}_kernel" in n for n in names) for k in prog.credits}
     assert seen == prog.credits == dict(_build.LAUNCHES)
+
+
+def _on(tree, device):
+    from torch.utils._pytree import tree_map
+
+    return tree_map(lambda t: t.to(device) if isinstance(t, torch.Tensor) else t, tree)
+
+
+def test_engine_on_a_second_card_matches_the_first(cuda):
+    """An engine on cuda:1 while cuda:0 is current: its replays and its
+    eager runs equal an engine's on cuda:0, bit for bit (every kernel
+    launch, capture and replay enters its tensors' device)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import draw_uniforms
+
+    torch.cuda.set_device(0)
+    second = torch.device("cuda:1")
+    soa = _scene_soa(5, 0.6)
+    outs = {}
+    for dev in (cuda, second):
+        engine = Preprocessor(_SLICE_CFG, device=dev)
+        buf = from_soa(soa, capacity=8192, device=dev)[0]
+        u = _draws(engine.settings).to(dev)
+        _build.reset_launches()
+        graphed = [engine.process_buffer(buf, ground_uniforms=u) for _ in range(2)]
+        draws = draw_uniforms(engine.settings, (), 8192, None, dev, u)
+        eager = build_pipeline(engine.settings)(buf, engine.params, None, *draws)
+        assert dict(_build.LAUNCHES) == {"masked_compact": 3, "segmented_sums": 3,
+                                         "window_stats": 6}
+        assert graphed[0][0].mask.device == dev and torch.cuda.current_device() == 0
+        outs[dev] = _on((graphed, eager), "cpu")
+    assert _same_tree(outs[cuda], outs[second])
+    assert _same_tree(outs[cuda][0][0], outs[cuda][1])
+
+
+def test_profile_mode_stage_programs_equal_eager_stages_on_card(cuda):
+    """Profile mode replays one program a stage: bit-equal to the stages
+    run eagerly with the same draws, with the production slice's
+    launches (1/1/2) and one timing key a stage."""
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import (
+        STAGE_TIMING_KEYS,
+        draw_uniforms,
+        stage_functions,
+    )
+
+    engine = Preprocessor(_SLICE_CFG, profile=True)
+    buf = from_soa(_scene_soa(6, 0.6), capacity=8192)[0]
+    u = _draws(engine.settings).to(cuda)
+    stages = stage_functions(engine.settings, separate_stages=True)
+    draws = draw_uniforms(engine.settings, (), 8192, None, cuda, u)
+    for _ in range(2):  # the captures, then the replays
+        _build.reset_launches()
+        got = engine.process_buffer(buf, ground_uniforms=u)
+        assert dict(_build.LAUNCHES) == {"masked_compact": 1, "segmented_sums": 1,
+                                         "window_stats": 2}
+        want, plane = buf, None
+        for _, fn in stages:
+            want, aux = fn(want, engine.params, None, *draws)
+            plane = aux if aux is not None else plane
+        assert _same_tree(got, (want, plane))
+    assert set(engine.processing_times) == {STAGE_TIMING_KEYS[n] for n, _ in stages} | {
+        "preprocessing_time"}
+
+
+def test_graphed_merge_equals_eager_on_card(cuda, monkeypatch):
+    """The concatenator's merge replayed from its program publishes the
+    clouds the eager merge publishes, byte for byte."""
+    import chip_smoke
+    from autodriver_pointcloud_preprocessor_tpu_torch.models import graphs
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops.linalg import se3_matrix
+    from autodriver_pointcloud_preprocessor_tpu_torch.parallel import PointcloudConcatenatorNode
+    from autodriver_pointcloud_preprocessor_tpu_torch.runtime import TopicBus
+
+    topics = ["/a", "/b", "/c"]
+    ext = {t: se3_matrix((50.0 * i, 0.0, 0.0), (0.0, 0.0, 0.5, 0.866)).numpy()
+           for i, t in enumerate(topics)}
+    clouds = []
+    for graphed in (True, False):
+        monkeypatch.setattr(graphs, "captures", lambda device, g=graphed: g and device.type == "cuda")
+        bus, outs = TopicBus(), []
+        PointcloudConcatenatorNode(bus, topics, extrinsics=ext, mode="sync", slop=0.05)
+        bus.create_subscription("/points/concatenated", outs.append)
+        for r in range(2):
+            for i, t in enumerate(topics):
+                bus.create_publisher(t).publish(chip_smoke.velodyne_msg(10 * r + i, 3.0 + r + 0.01 * i))
+        clouds.append([o.data for o in outs])
+    assert len(clouds[0]) == 2 and clouds[0] == clouds[1]
+
+
+def test_sharded_nccl_step_is_captured_and_equals_eager(cuda, tmp_path):
+    """A world of one NCCL rank on cuda:0: ``build_sharded_pipeline``
+    replays a captured step, bit-equal to the eager body with the same
+    draws, with the same launches (0/1/2) and collectives a step."""
+    import torch.distributed as dist
+
+    from autodriver_pointcloud_preprocessor_tpu_torch.models import graphs
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import PipelineParams
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import PipelineSettings
+    from autodriver_pointcloud_preprocessor_tpu_torch.parallel import sharding as sh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0, world_size=1)
+    try:
+        mesh = sh.make_mesh()
+        settings = PipelineSettings(
+            remove_statistical_outliers=True, nb_neighbors=16, estimate_normals=True,
+            max_neighbors=16, remove_ground=True, ransac_n=3, num_iterations=64,
+            knn_method="window", ground_before_voxel=True, post_downsample_capacity=4096)
+        params = PipelineParams.make(voxel_size=0.1, distance_threshold=0.1, device=cuda)
+        local = sh.shard_buffer(from_soa(_scene_soa(7, 0.6), capacity=8192)[0], mesh)
+        step = sh.build_sharded_pipeline(settings, mesh)
+        eager = sh.make_local_run(settings, mesh=mesh)
+        assert sh.captures_step(mesh.get_group("point"), cuda)
+        u = _draws(settings).to(cuda)
+        for _ in range(2):  # the capture, then a replay
+            counts = []
+            for fn in (step, eager):
+                _build.reset_launches()
+                sh.reset_collectives()
+                out = fn(local, params, None, u)
+                counts.append((dict(_build.LAUNCHES), dict(sh.COLLECTIVES)))
+                if fn is step:
+                    got = out
+            assert _same_tree(got, out) and counts[0] == counts[1]
+            assert counts[0][0] == {"masked_compact": 0, "segmented_sums": 1, "window_stats": 2}
+        assert graphs.programs()[-1].replays == 2  # the step's program, used last
+    finally:
+        graphs.clear()
+        dist.destroy_process_group()

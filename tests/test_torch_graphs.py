@@ -18,7 +18,12 @@ plumbing does, is checked here at the 8192-point slice:
 - with the capture replaced by an eager stand-in (a CPU has no CUDA
   graph), the engine and the streaming path give what eager runs give,
   honour a reconfigure and a new TF after capture, keep results a caller
-  holds, credit launches and evict the least recently used program.
+  holds, credit launches and evict the least recently used program, by
+  count and by the graph pools' bytes; the concatenator's merge replays
+  one program a set of capacities and attribute schemas, and profile mode
+  one program a stage, each equal to its eager run;
+- every kernel launch, capture and replay runs under the device guard of
+  its tensors' device (the launch and capture calls patched).
 """
 import dataclasses
 import importlib
@@ -441,6 +446,10 @@ class _EagerGraph:
                 dst.copy_(src)
 
 
+#: a card's memory for the cache's byte bound (``torch.cuda.mem_get_info``)
+_CARD_BYTES = 80 << 30
+
+
 @pytest.fixture
 def eager_capture(monkeypatch):
     def capture(fn, device):  # no warm-up: nothing is built lazily on the CPU
@@ -449,6 +458,7 @@ def eager_capture(monkeypatch):
 
     monkeypatch.setattr(graphs, "_capture", capture)
     monkeypatch.setattr(graphs, "captures", lambda device: True)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (_CARD_BYTES, _CARD_BYTES))
     graphs.clear()
     yield
     graphs.clear()
@@ -574,3 +584,274 @@ def test_least_recently_used_program_is_evicted(eager_capture, monkeypatch):
     # "bb" left when "ccc" came ("a" was used more recently) and came back
     assert made == ["a", "bb", "ccc", "bb"]
     assert len(graphs.programs()) == 2
+
+
+def test_least_used_programs_are_evicted_by_pool_bytes(eager_capture, monkeypatch):
+    # a card of 400 bytes: the pools may hold POOL_FRACTION of it together
+    total = 400
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (total, total))
+    pools = {"a": 40, "bb": 40, "ccc": 40, "huge": 500}
+    emptied = []
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: emptied.append(len(graphs.programs())))
+
+    def capture(fn, device):
+        outputs = fn()
+        return _EagerGraph(fn, outputs), outputs, pools[tag]
+
+    monkeypatch.setattr(graphs, "_capture", capture)
+    x = torch.zeros(3)
+    budget = graphs.POOL_FRACTION * total
+    assert 2 * 40 <= budget < 3 * 40
+    for tag in ("a", "bb", "a", "ccc"):
+        assert torch.equal(graphs.program(tag, lambda t=tag: lambda y: y + len(t), x)(x),
+                           x + len(tag))
+    # "bb" was least recently used when "ccc" took the pools past the bound
+    held = graphs.programs()
+    assert [graphs.lookup(t, (x,)) is not None for t in ("a", "bb", "ccc")] == [True, False, True]
+    assert sum(p.pool_bytes for p in held) <= budget and emptied == [2]
+    # a program over the bound alone evicts every other and stays
+    tag = "huge"
+    graphs.program(tag, lambda: lambda y: y, x)
+    assert [p.pool_bytes for p in graphs.programs()] == [500] and emptied == [2, 1]
+    assert len(graphs.programs()) <= graphs.MAX_PROGRAMS
+
+
+# ------------------------------------------------ the merge and profile mode ----
+
+def _merge_inputs(capacities, with_ring=(True, True)):
+    rng = np.random.default_rng(len(capacities) + sum(capacities))
+    bufs = []
+    for cap, ring in zip(capacities, with_ring):
+        n = cap - cap // 8
+        soa = {"positions": rng.normal(0, 5, (n, 3)).astype(np.float32),
+               "intensity": rng.uniform(0, 255, n).astype(np.float32)}
+        if ring:
+            soa["ring"] = rng.integers(0, 32, n).astype(np.uint16)
+        bufs.append(from_soa(soa, capacity=cap, device="cpu")[0])
+    exts = [torch.from_numpy(np.eye(4, dtype=np.float32)) for _ in capacities]
+    exts[-1][0, 3] = 10.0
+    return bufs, exts
+
+
+def test_merge_reads_nothing_on_the_host(probe):
+    from autodriver_pointcloud_preprocessor_tpu_torch.parallel.concat import concatenate_buffers
+
+    bufs, exts = _merge_inputs((1024, 2048), (True, False))
+    with probe:
+        merged = concatenate_buffers(bufs, exts)
+    assert probe.found == [] and merged.capacity == 3072
+
+
+def test_merge_programs_keyed_by_capacity_and_schema(eager_capture):
+    from autodriver_pointcloud_preprocessor_tpu_torch.parallel.concat import (
+        PointcloudConcatenatorNode,
+        concatenate_buffers,
+    )
+    from autodriver_pointcloud_preprocessor_tpu_torch.runtime import TopicBus
+
+    node = PointcloudConcatenatorNode(TopicBus(), ["/a", "/b"], device="cpu")
+    for caps, rings in (((1024, 1024), (True, True)), ((1024, 1024), (True, True)),
+                        ((1024, 2048), (True, True)), ((1024, 1024), (True, False))):
+        bufs, exts = _merge_inputs(caps, rings)
+        assert _same(node._merge(bufs, exts), concatenate_buffers(bufs, exts))
+    # one program a (capacities, attribute schemas): the second set replayed
+    assert [p.replays for p in graphs.programs()] == [2, 1, 1]
+
+
+def test_graphed_merge_publishes_the_eager_merge_clouds(eager_capture, monkeypatch):
+    from autodriver_pointcloud_preprocessor_tpu_torch.io.loader import soa_to_pointcloud2
+    from autodriver_pointcloud_preprocessor_tpu_torch.parallel.concat import (
+        PointcloudConcatenatorNode,
+    )
+    from autodriver_pointcloud_preprocessor_tpu_torch.core.msg import Time
+    from autodriver_pointcloud_preprocessor_tpu_torch.runtime import TopicBus
+
+    def round_of(graphed):
+        bus, outs = TopicBus(), []
+        monkeypatch.setattr(graphs, "captures", lambda device: graphed)
+        PointcloudConcatenatorNode(bus, ["/a", "/b", "/c"], extrinsics={"/b": np.diag(
+            [1.0, -1.0, -1.0, 1.0])}, mode="sync", slop=0.05, device="cpu")
+        bus.create_subscription("/points/concatenated", outs.append)
+        for r in range(2):
+            for i, topic in enumerate(("/a", "/b", "/c")):
+                rng = np.random.default_rng(10 * r + i)
+                n = 300 + 50 * i
+                t = 5.0 + r + 0.013 * i  # a time base of each sensor's own
+                soa = {"positions": rng.normal(0, 3, (n, 3)).astype(np.float32),
+                       "time": t + np.sort(rng.uniform(0, 0.05, n))}
+                bus.create_publisher(topic).publish(
+                    soa_to_pointcloud2(soa, frame_id="s", stamp=Time.from_float(t)))
+        return outs
+
+    graphed, eager = round_of(True), round_of(False)
+    assert len(graphed) == len(eager) == 2
+    assert all(a.data == b.data for a, b in zip(graphed, eager))
+    assert len(graphs.programs()) == 1 and graphs.programs()[0].replays == 2
+
+
+@pytest.mark.parametrize("path", ["production", "config2"])
+def test_profile_mode_stages_read_nothing_on_the_host(probe, path):
+    settings, params = _settings_params(path)
+    buf = _buf(0)
+    gu, du = pipeline.draw_uniforms(settings, (), buf.capacity, torch.Generator().manual_seed(0),
+                                    CPU)
+    with probe:
+        for _, fn in pipeline.stage_functions(settings, separate_stages=True):
+            buf, _ = fn(buf, params, None, gu, du)
+    assert probe.found == [], f"{path}: host reads {sorted(set(probe.found))}"
+
+
+#: config 2 under the reference's parameter names (the engine's surface)
+CONFIG2_NAMED = {
+    "remove_duplicates": False, "crop_to_roi": False, "voxel_size": 0.08,
+    "remove_statistical_outliers": True, "remove_statistical_outliers.nb_neighbors": 20,
+    "remove_statistical_outliers.std_ratio": 2.0, "remove_radius_outliers": True,
+    "remove_radius_outliers.nb_points": 8, "remove_radius_outliers.search_radius": 0.4,
+    "estimate_normals": False, "knn_method": "window",
+}
+
+
+@pytest.mark.parametrize("cfg", [SMALL, {**SMALL, "downsample_method": "random"}, CONFIG2_NAMED])
+def test_profile_mode_stage_programs_equal_eager_stages(eager_capture, cfg):
+    engine = Preprocessor(cfg, profile=True, seed=3, device="cpu")
+    stages = pipeline.stage_functions(engine.settings, separate_stages=True)
+    gen = torch.Generator().manual_seed(3)
+    for seed in (0, 1):  # the capture of each stage, then its replay
+        buf = _small(seed)
+        got = engine.process_buffer(buf)
+        want, plane = buf, torch.full((4,), float("nan"))
+        for _, fn in stages:  # the eager profile run, drawing inside
+            want, aux = fn(want, engine.params, gen)
+            plane = plane if aux is None else aux
+        assert _same(got, (want, plane))
+    assert set(engine.processing_times) == {
+        pipeline.STAGE_TIMING_KEYS[name] for name, _ in stages} | {"preprocessing_time"}
+    # one program a stage, each replayed once after its capture
+    assert len(graphs.programs()) == len(stages)
+    assert all(p.replays == 2 for p in graphs.programs())
+
+
+# ------------------------------------------------- the device guard (fault 14) ----
+
+class _GuardLog:
+    """Stands in for ``_build.device_guard``: records each guard entered
+    and which one is active."""
+
+    def __init__(self):
+        self.entered, self.active = [], []
+
+    def __call__(self, device):
+        log = self
+
+        class _Guard:
+            def __enter__(self):
+                log.entered.append(device)
+                log.active.append(device)
+
+            def __exit__(self, *exc):
+                log.active.pop()
+
+        return _Guard()
+
+
+def test_device_guard_names_the_tensors_card():
+    guard = _build.device_guard(torch.device("cuda:1"))
+    assert isinstance(guard, torch.cuda.device) and guard.idx == 1
+    with _build.device_guard(CPU):  # nothing to switch on the CPU
+        pass
+
+
+def test_kernel_launches_run_under_their_tensors_device(monkeypatch):
+    log, calls = _GuardLog(), []
+
+    class _Lib:
+        def __getattr__(self, name):
+            def entry(*args):  # the C entry: where it runs, on which stream
+                calls.append((name, log.active[-1] if log.active else None, args[-1]))
+                return 0
+            return entry
+
+    monkeypatch.setattr(_build, "device_guard", log)
+    monkeypatch.setattr(_build, "load_library", lambda: _Lib())
+    monkeypatch.setattr(_build, "stream_handle", lambda device: f"stream of {device}")
+    window_stats = importlib.import_module(
+        "autodriver_pointcloud_preprocessor_tpu_torch.ops.window_stats")
+    _build.reset_launches()
+    mask = torch.ones(2, 256, dtype=torch.bool)
+    segmean._launch_k1([0] * 4 * 20, mask, torch.empty_like(mask), 2, 256, 128)  # 2 launches
+    segmean._launch_k2(torch.zeros(2, 4, 256), mask, 2, 4, 256)
+    rows = [torch.zeros(2, 256) for _ in range(3)]
+    window_stats._launch_k3(rows, mask, torch.ones(1), None, 8, 1, 0, "csel", True)
+    on_cpu = (CPU, f"stream of {CPU}")
+    assert [(c[0], c[1:]) for c in calls] == [
+        ("apc_masked_compact", on_cpu), ("apc_masked_compact", on_cpu),
+        ("apc_segmented_sums", on_cpu), ("apc_window_stats", on_cpu)]
+    assert dict(_build.LAUNCHES) == {"masked_compact": 2, "segmented_sums": 1, "window_stats": 1}
+
+
+def test_capture_and_replay_run_under_the_programs_device(monkeypatch):
+    log, seen = _GuardLog(), []
+    monkeypatch.setattr(_build, "device_guard", log)
+    card = torch.device("cuda:1")
+
+    class _Stream:
+        def __init__(self, device=None, priority=0):
+            self.device = device
+            seen.append(("stream", device, list(log.active)))
+
+        def wait_stream(self, other):
+            pass
+
+    class _Capture:
+        def __init__(self, graph, pool=None, stream=None, capture_error_mode="global"):
+            seen.append(("capture", stream.device, capture_error_mode, list(log.active)))
+
+        def __enter__(self):
+            pass
+
+        def __exit__(self, *exc):
+            pass
+
+    class _SideStream:
+        def __init__(self, stream):
+            seen.append(("warm-up on", stream.device, list(log.active)))
+
+        def __enter__(self):
+            pass
+
+        def __exit__(self, *exc):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "Stream", _Stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream(device))
+    monkeypatch.setattr(torch.cuda, "stream", _SideStream)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: "graph")
+    monkeypatch.setattr(torch.cuda, "graph", _Capture)
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device=None: 0)
+
+    def fn():
+        seen.append(("run", list(log.active)))
+        return torch.zeros(1)
+
+    graph, _, pool = graphs._capture(fn, card)
+    assert graph == "graph" and pool == 0 and log.entered == [card]
+    # every stream, the warm-up, the capture (thread-local) and both runs
+    # on the program's card, inside its guard
+    assert seen and all(e[-1] == [card] for e in seen)
+    assert all(e[1] == card for e in seen if e[0] != "run")
+    assert [e for e in seen if e[0] == "capture"] == [("capture", card, "thread_local", [card])]
+    assert [e[0] for e in seen].count("run") == 2
+
+    # a replay fills its inputs and replays inside the guard of its device
+    monkeypatch.setattr(graphs, "_capture", lambda f, device: (
+        _EagerGraph(f, f()), f(), 0))
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (_CARD_BYTES, _CARD_BYTES))
+    graphs.clear()
+    replayed = []
+    x = torch.arange(3.0)
+    prog = graphs.program("toy", lambda: lambda y: replayed.append(list(log.active)) or y * 2, x)
+    replayed.clear()
+    log.entered.clear()
+    assert torch.equal(prog(x), x * 2)
+    assert replayed == [[CPU]] and log.entered == [CPU] and prog.device == CPU
+    graphs.clear()

@@ -9,8 +9,14 @@ The reference runs in the test process on ``make_mesh(jax.devices()[:4])``
 in interpret mode where the case needs it. Rank ``i`` gets the
 reference's own RANSAC draws, ``uniform(fold_in(key, i), (16, 3))``.
 
+Case (i) is the step as one captured program (a CUDA graph on an NCCL
+group, eager on gloo): the dispatch probe, the draws taken ahead and the
+replay plumbing with ``tests/test_torch_graphs.py``'s eager stand-in for
+the capture. The shrink's device-side select needs no rank and is checked
+in this process, against the reference's ``lax.cond``.
+
 The spawned ranks import this module again, so it imports ``jax`` only
-inside functions.
+inside functions (case (i) brings it in with ``test_torch_graphs``).
 """
 from __future__ import annotations
 
@@ -436,11 +442,123 @@ def _case_scan_point(r):
     r.save("scan_point", same=r.stacked(torch.tensor(same)), batch_shape=list(out.mask.shape))
 
 
+#: the sharded steps the dispatch probe walks: the production knobs with
+#: the shrink engaged, exact kNN, the random downsampler ahead of a
+#: ground-first RANSAC, unfused radius outliers and normals, the height cut
+PROBED = {
+    "production_shrink": dict(FULL, post_downsample_capacity=2048),
+    "exact": EXACT,
+    "random_ground_first": dict(WINDOW, downsample_method="random", ground_before_voxel=False,
+                                ground_before_neighborhood=True, post_downsample_capacity=2048),
+    "radius_unfused": dict(WINDOW, remove_radius_outliers=True, fuse_neighborhood=False),
+    "height": dict(FULL, ground_method="height"),
+}
+
+
+def _case_capture(r):
+    """(i) the step as one captured program, on these gloo CPU ranks: the
+    dispatch probe finds no host read on any ``PROBED`` step; drawing the
+    uniforms ahead equals drawing them inside; with the capture replaced by
+    ``tests/test_torch_graphs.py``'s eager stand-in and ``captures_step``
+    held true, the step's replays equal eager runs, credit the kernel
+    launches (counted by wrapping K2's and K3's consumers) and the
+    collectives, and two groups of equal shapes get a program each."""
+    from test_torch_graphs import _EagerGraph, _HostReadProbe, _same
+
+    from autodriver_pointcloud_preprocessor_tpu_torch.models import graphs
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops import _build
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops import voxel as port_voxel
+
+    buf = _buf(_dense_scene(8000), 8192)
+    params = _params(voxel_size=0.1, distance_threshold=0.1, search_radius=0.5,
+                     radius_search_radius=0.5, radius_nb_points=2, sampling_ratio=0.5,
+                     ground_plane=[0.0, 0.0, 1.0, 0.0])
+    local = sh.shard_buffer(buf, r.mesh)
+    cpu = torch.device("cpu")
+    for name, kw in PROBED.items():
+        settings = PipelineSettings(**kw)
+        draws = sh.draw_local_uniforms(settings, WORLD, (), local.capacity,
+                                       torch.Generator().manual_seed(r.rank), cpu)
+        probe = _HostReadProbe()
+        with probe:
+            out, _ = sh.make_local_run(settings, mesh=r.mesh)(local, params, None, *draws)
+        r.save("capture", **{f"probe_{name}": np.array(sorted(set(probe.found)), dtype=str),
+                             f"live_{name}": r.stacked(out.mask.sum())})
+
+    same = []
+    for kw in (dict(FULL, downsample_method="random"),  # ground, then the downsampler
+               dict(WINDOW, downsample_method="random", ground_before_voxel=False)):
+        settings = PipelineSettings(**kw)
+        run = sh.make_local_run(settings, mesh=r.mesh)
+        inside = torch.Generator().manual_seed(7 + r.rank)
+        want = run(local, params, inside)
+        ahead = torch.Generator().manual_seed(7 + r.rank)
+        draws = sh.draw_local_uniforms(settings, WORLD, (), local.capacity, ahead, cpu)
+        same.append(_same(run(local, params, None, *draws), want)
+                    and torch.equal(torch.rand(3, generator=inside), torch.rand(3, generator=ahead)))
+    r.save("capture", draws_ahead=r.stacked(torch.tensor(same)))
+
+    class _Graph(_EagerGraph):  # a replay counts no collective either
+        def replay(self):
+            saved = dict(sh.COLLECTIVES)
+            super().replay()
+            sh.COLLECTIVES.update(saved)
+
+    def capture(fn, device):
+        outputs = fn()
+        return _Graph(fn, outputs), outputs, 0
+
+    def counting(name, real):
+        def spy(*a, **kw):
+            _build.LAUNCHES[name] += 1
+            return real(*a, **kw)
+        return spy
+
+    patched = [(graphs, "_capture", capture), (sh, "captures_step", lambda group, device: True),
+               (torch.cuda, "mem_get_info", lambda device=None: (1 << 36, 1 << 36)),
+               (port_voxel, "segmented_sums", counting("segmented_sums", port_voxel.segmented_sums)),
+               (port_window, "window_stats", counting("window_stats", port_window.window_stats))]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
+    for obj, name, value in patched:
+        setattr(obj, name, value)
+    graphs.clear()
+    try:
+        settings = PipelineSettings(**dict(FULL, post_downsample_capacity=2048))
+        step = sh.build_sharded_pipeline(settings, r.mesh)
+        eager = sh.make_local_run(settings, mesh=r.mesh)
+
+        def counted(fn, generator, u):
+            _build.reset_launches()
+            sh.reset_collectives()
+            out = fn(local, params, generator, u)
+            return out, [_build.LAUNCHES[k] for k in _build.LAUNCHES] + [
+                sh.COLLECTIVES["calls"], sh.COLLECTIVES["bytes"]]
+
+        replays, counts = [], []
+        # the capture, a replay on other draws, a replay drawing from a generator
+        for u, seed in ((r.u(), None), (r.u().flip(0), None), (None, 5 + r.rank)):
+            got, want = (counted(fn, None if seed is None else torch.Generator().manual_seed(seed),
+                                 u) for fn in (step, eager))
+            replays.append(_same(got[0], want[0]) and got[1] == want[1])
+            counts.append(got[1])
+        # another group over the same ranks: equal shapes, its own program
+        other = sh.make_mesh(dist.new_group(list(range(WORLD))))
+        got = sh.build_sharded_pipeline(settings, other)(local, params, None, r.u())
+        replays.append(_same(got, eager(local, params, None, r.u())))
+        progs = graphs.programs()
+        r.save("capture", replays=r.stacked(torch.tensor(replays)), counts=np.array(counts),
+               programs=len(progs), program_replays=[p.replays for p in progs])
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+        graphs.clear()
+
+
 CASES = (
     _case_halo, _case_ground, _case_exact, _case_production, _case_outlier_stats,
     _case_normals, _case_parity, _case_shrink, _case_radius, _case_window_full,
     _case_quality, _case_resurrect, _case_ground_first, _case_knobs, _case_compact_keys,
-    _case_warning, _case_scan_point,
+    _case_warning, _case_scan_point, _case_capture,
 )
 
 
@@ -806,6 +924,119 @@ def test_scan_point_mesh_batch_equals_lone_scans(port):
 
 
 # ------------------------------------------------------------------ (i) ----
+
+# ------------------------------------------------------------------ (i) ----
+
+#: a 4096 bucket over the 4 ranks: a 1024-row share of a 2048-row slab
+SHRINK_SHARE, SHRINK_SLAB = 1024, 2048
+
+
+def _shrink_stage():
+    """The sharded shrink stage of rank 0 of 4 (it needs no collective)."""
+    settings = PipelineSettings(estimate_normals=False, post_downsample_capacity=4 * SHRINK_SHARE)
+    return dict(sh._local_stages(settings, sh._Axis(None, WORLD, 0), 512))["shrink"]
+
+
+def _front_compacted(live, seed=0):
+    """A voxel stage's slab output: ``live`` points front-compacted, with
+    an attribute."""
+    rng = np.random.default_rng(seed)
+    pos = np.zeros((3, SHRINK_SLAB), np.float32)
+    pos[:, :live] = rng.uniform(-10, 10, (3, live))
+    return ScanBuffer(
+        positions=torch.from_numpy(pos), mask=torch.arange(SHRINK_SLAB) < live,
+        attributes={"intensity": torch.from_numpy(rng.uniform(0, 255, SHRINK_SLAB)
+                                                  .astype(np.float32))})
+
+
+def test_sharded_shrink_select_is_bit_equal_to_both_branches():
+    from test_torch_graphs import _same
+
+    from autodriver_pointcloud_preprocessor_tpu_torch import ops
+
+    stage = _shrink_stage()
+    params = _params()
+    lives = (SHRINK_SHARE - 24, SHRINK_SHARE, SHRINK_SHARE + 76)  # below, at, above the share
+    bufs = [_front_compacted(live, seed) for seed, live in enumerate(lives)]
+    outs = [stage(b, params)[0] for b in bufs]
+    for b, out, live in zip(bufs, outs, lives):
+        want = (ops.shrink_front(b, SHRINK_SHARE) if live <= SHRINK_SHARE
+                else ops.subsample_to(b, SHRINK_SHARE))
+        assert out.capacity == SHRINK_SHARE and _same(out, want)
+    # a batch mixing the three: each scan takes its own branch
+    both = stage(stack_buffers(bufs), params)[0]
+    for i, alone in enumerate(outs):
+        assert _same(ScanBuffer(both.positions[i], both.mask[i],
+                                {k: v[i] for k, v in both.attributes.items()}), alone)
+
+
+@pytest.mark.parametrize("live", [SHRINK_SHARE - 24, SHRINK_SHARE, SHRINK_SHARE + 76])
+def test_sharded_shrink_matches_the_reference_cond(live):
+    """Against the reference's ``lax.cond`` of the sharded shrink
+    (reference ``parallel/sharding.py:561``) on the same slab."""
+    import jax
+    import jax.numpy as jnp
+
+    from autodriver_pointcloud_preprocessor_tpu import ops as rops
+    from autodriver_pointcloud_preprocessor_tpu.core.scan import ScanBuffer as RBuf
+    from autodriver_pointcloud_preprocessor_tpu.core.scan import valid_count
+
+    buf = _front_compacted(live, seed=live)
+    rbuf = RBuf(positions=jnp.asarray(buf.positions.numpy()), mask=jnp.asarray(buf.mask.numpy()),
+                attributes={k: jnp.asarray(v.numpy()) for k, v in buf.attributes.items()})
+    ref = jax.lax.cond(valid_count(rbuf) > SHRINK_SHARE,
+                       lambda bb: rops.subsample_to(bb, SHRINK_SHARE),
+                       lambda bb: rops.shrink_front(bb, SHRINK_SHARE), rbuf)
+    got = _shrink_stage()(buf, _params())[0]
+    # the live rows are bit-equal (the reference's sort is unstable only
+    # among the dead tail)
+    live_rows = np.asarray(ref.mask)
+    np.testing.assert_array_equal(got.mask.numpy(), live_rows)
+    assert live_rows.sum() == min(live, SHRINK_SHARE)
+    np.testing.assert_array_equal(got.positions.numpy()[:, live_rows],
+                                  np.asarray(ref.positions)[:, live_rows])
+    np.testing.assert_array_equal(got.attributes["intensity"].numpy()[live_rows],
+                                  np.asarray(ref.attributes["intensity"])[live_rows])
+
+
+@pytest.mark.parametrize("path", list(PROBED))
+def test_sharded_step_reads_nothing_on_the_host(port, path):
+    case = _case(port, "capture")
+    assert list(case[f"probe_{path}"]) == [], f"{path}: host reads {list(case[f'probe_{path}'])}"
+    assert (case[f"live_{path}"] > 0).all()
+
+
+def test_sharded_drawing_ahead_equals_drawing_inside(port):
+    assert _case(port, "capture")["draws_ahead"].all()
+
+
+def test_sharded_replays_equal_eager_runs_and_credit_their_counts(port):
+    case = _case(port, "capture")
+    # every rank: the capture, two replays and the other group's program
+    # equal the eager runs with their launches and collectives
+    assert case["replays"].shape == (WORLD, 4) and case["replays"].all()
+    counts = case["counts"]  # rank 0's K1, K2, K3, collective calls and bytes a step
+    assert (counts[:, :3] == [0, 1, 2]).all() and (counts[:, 3] == 7).all()
+    assert (counts == counts[0]).all()
+    # two groups of equal shapes: a program each; the first replayed 3 times
+    assert int(case["programs"]) == 2 and list(case["program_replays"]) == [3, 1]
+
+
+def test_sharded_step_captures_only_on_nccl_cards():
+    class _Group:
+        def __init__(self, backend):
+            self.backend = backend
+
+    real = dist.get_backend
+    try:
+        dist.get_backend = lambda group: group.backend
+        cuda, cpu = torch.device("cuda:0"), torch.device("cpu")
+        assert sh.captures_step(_Group(dist.Backend.NCCL), cuda)
+        assert not sh.captures_step(_Group(dist.Backend.GLOO), cuda)
+        assert not sh.captures_step(_Group(dist.Backend.NCCL), cpu)
+    finally:
+        dist.get_backend = real
+
 
 def test_halo_must_be_a_multiple_of_128():
     with pytest.raises(ValueError, match="multiple of 128"):
