@@ -16,9 +16,11 @@ uniform and farthest-point downsamplers, the post-downsample shrink, the
 fused multi-pass Hilbert-window neighbourhood (K3) with the mean+std
 outlier threshold of each scan and the radius-outlier count riding the
 same sweep, and the standalone statistical outlier, radius outlier and
-normal stages (exact kNN or the window). ``pallas_ok=False`` (the
-reference's XLA window fallback) raises ``NotImplementedError``: the port
-has one route per kernel.
+normal stages (exact kNN or the window). ``pallas_ok=False`` threads the
+reference's ``"xla"`` backend to the stages it reaches, as the reference
+does: the window stages then take the XLA route of ``ops/window.py``
+(another function than K3's windows), while compaction and the voxel
+stage keep K1 and K2, which compute the XLA route's function.
 
 Every stage takes one scan or a batch of scans (a leading axis on every
 tensor of the buffer, ``core.stack_buffers``), so the same runner serves
@@ -157,9 +159,10 @@ class PipelineSettings:
     #: pessimization there (PERF_NOTES round 5).
     ground_score_subsample: int = 0
     knn_method: str = "auto"  # 'auto' | 'exact' | 'window'
-    #: debug flag: False forces XLA kernel variants (no pallas_call).
-    #: Batched/vmapped execution keeps the Pallas path — the window kernel
-    #: maps vmap onto a batch grid dimension (ops/pallas_window.py).
+    #: False selects the reference's XLA variants: the window stages take
+    #: the XLA route of ops/window.py (whole-block rolled windows, exact
+    #: top-k; no K3); compaction and the voxel stage keep K1 and K2, whose
+    #: functions the XLA variants compute too.
     pallas_ok: bool = True
     #: Hilbert-window passes for approximate neighborhoods: more passes =
     #: better recall (axis-permuted curves min-merged), linear cost
@@ -318,16 +321,12 @@ STAGE_TIMING_KEYS = {
 }
 
 
-def _check_supported(settings: "PipelineSettings") -> None:
-    """Raise for settings whose stages the port does not have yet."""
-    if not settings.pallas_ok:
-        # the reference's XLA variants compute another window (wb=0 widens
-        # to a full block per side); the port has one route per kernel
-        raise NotImplementedError(
-            "pallas_ok=False selects the reference's XLA window fallback (wb=0 "
-            "widened to a full block per side), which the torch package does not "
-            "port: it has one route per kernel (ROADMAP, not ported)"
-        )
+def window_backend(settings: PipelineSettings) -> str:
+    """The backend of the window stages: ``"xla"`` (the window ops' XLA
+    route) for ``pallas_ok=False``, else ``"auto"`` (K3). The other stages
+    take no backend: compaction and the voxel stage compute the same
+    function on either of the reference's routes."""
+    return "auto" if settings.pallas_ok else "xla"
 
 
 def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
@@ -340,9 +339,9 @@ def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
     the voxel sort and the radius outliers out of the fused neighbourhood,
     so that they run, and are timed, as stages of their own.
     """
-    _check_supported(settings)
     stages = []
     method = settings.downsample_method
+    backend = window_backend(settings)
     if settings.voxel_downsample and method not in (
         "voxel", "random", "uniform", "farthest_point"
     ):
@@ -502,6 +501,7 @@ def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
                 entries_merge=settings.normals_merge_passes,
                 # the stage thresholds on the kNN mean alone
                 carry_count=False,
+                backend=backend,
             )
             pos, valid, attrs, mean_d, normals = out[:5]
             keep = valid & outlier_keep(mean_d, valid, p.std_ratio)
@@ -515,7 +515,7 @@ def stage_functions(settings: PipelineSettings, separate_stages: bool = False):
 
     standalone = dict(
         method=settings.knn_method, window_blocks=settings.window_blocks,
-        passes=settings.neighborhood_passes,
+        passes=settings.neighborhood_passes, window_backend=backend,
     )
     if settings.remove_statistical_outliers and not fuse:
         stages.append((

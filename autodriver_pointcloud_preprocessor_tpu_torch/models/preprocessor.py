@@ -75,6 +75,10 @@ class Preprocessor:
             random downsampler's, drawn anew for every scan).
         device: where the engine's tensors live (default ``cuda:0``;
             raises without a card unless a device is given).
+        pallas_ok: ``PipelineSettings.pallas_ok``, a settings field that no
+            config key reaches: False runs the window stages on the
+            reference's XLA route (``ops/window.py``, no K3). It holds
+            across ``update_config`` and ``set_tf_matrix``.
     """
 
     def __init__(
@@ -83,8 +87,10 @@ class Preprocessor:
         profile: bool = False,
         seed: int = 0,
         device: torch.device | str | None = None,
+        pallas_ok: bool = True,
     ):
         self.config: Dict[str, object] = dict(config or {})
+        self.pallas_ok = pallas_ok
         self.profile = profile
         self.device = resolve_device(device)
         self.processing_times: Dict[str, float] = {}
@@ -98,7 +104,8 @@ class Preprocessor:
     def _rebuild(self) -> None:
         cfg = dict(self.config)
         cfg["_has_tf"] = self._tf_matrix is not None
-        self.settings: PipelineSettings = settings_from_config(cfg)
+        self.settings: PipelineSettings = dataclasses.replace(
+            settings_from_config(cfg), pallas_ok=self.pallas_ok)
         # raises here, not at the next scan, for a stage the port lacks
         self._run = build_pipeline(self.settings)
         self.params: PipelineParams = params_from_config(cfg, self._tf_matrix, self.device)

@@ -18,6 +18,17 @@ __all__ = [
     "subsample_to",
 ]
 
+#: the reference's ``backend`` values (``ops/window.py default_backend``)
+BACKENDS = ("auto", "pallas", "pallas_interpret", "xla")
+
+
+def check_backend(backend: str) -> str:
+    """``backend`` if it is one of the reference's values, else raise."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
+    return backend
+
+
 def compaction_order(mask: torch.Tensor) -> torch.Tensor:
     """Stable permutation (along the last axis) putting True rows first."""
     return torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)
@@ -93,7 +104,7 @@ def subsample_to(buf: ScanBuffer, capacity: int) -> ScanBuffer:
     )
 
 
-def stream_compact_to(buf: ScanBuffer, capacity: int) -> ScanBuffer:
+def stream_compact_to(buf: ScanBuffer, capacity: int, backend: str = "auto") -> ScanBuffer:
     """Compact live points to the front of a smaller buffer with K1.
 
     Every row (positions and each attribute row, float32 or int32) rides
@@ -103,7 +114,11 @@ def stream_compact_to(buf: ScanBuffer, capacity: int) -> ScanBuffer:
     with rank >= ``capacity`` are dropped (capped-output semantics); dead
     output slots hold zeros. Other dtypes raise; on a card every tensor
     must be contiguous.
+
+    Every ``backend`` of the reference takes K1: its ``"xla"`` route
+    (``compact_to``) gives the same survivors in the same order.
     """
+    check_backend(backend)
     if capacity > buf.capacity:
         raise ValueError(
             f"stream_compact_to grows capacity {buf.capacity} -> {capacity}"

@@ -45,16 +45,19 @@ def knn_exact(
     """
     n = positions.shape[-1]
     k = min(k, n)
-    inf = torch.full((), float("inf"), dtype=torch.float32, device=positions.device)
     pts = positions.to(torch.float32)
+    dead = ~mask.unsqueeze(-2)
     dists, idx = [], []
     for s in range(0, n, query_tile):
         q = pts[..., :, s : s + query_tile]  # [..., 3, T]
+        # in place on the [..., T, N] block: the roundings of
+        # dx*dx + dy*dy + dz*dz with no temporary beyond the block
         d2 = None
         for c in range(3):
-            diff = q[..., c, :, None] - pts[..., c, None, :]  # [..., T, N]
-            d2 = diff * diff if d2 is None else d2 + diff * diff
-        d2 = torch.where(mask.unsqueeze(-2), d2, inf)
+            diff = q[..., c, :, None] - pts[..., c, None, :]
+            diff.mul_(diff)
+            d2 = diff if d2 is None else d2.add_(diff)
+        d2.masked_fill_(dead, float("inf"))
         top = torch.topk(d2, k, dim=-1, largest=False, sorted=True)
         dists.append(top.values)
         idx.append(top.indices)

@@ -52,7 +52,10 @@ def se3_matrix(translation, quaternion_xyzw) -> torch.Tensor:
     return torch.cat([torch.cat([rot, t], dim=1), bottom], dim=0)
 
 
-def _smallest_eigenvalue(a00, a11, a22, a01, a02, a12):
+def _eigen_angle(a00, a11, a22, a01, a02, a12):
+    """(q, p, phi) of the trigonometric closed form: the eigenvalues are
+    q + 2 p cos(phi + 2 pi k / 3), the largest at k = 0, the smallest at
+    k = 1."""
     q = (a00 + a11 + a22) / 3.0
     p1 = a01 * a01 + a02 * a02 + a12 * a12
     d0, d1, d2 = a00 - q, a11 - q, a22 - q
@@ -67,19 +70,17 @@ def _smallest_eigenvalue(a00, a11, a22, a01, a02, a12):
         + b02 * (b01 * b12 - b11 * b02)
     )
     r = torch.clamp(detb / 2.0, -1.0, 1.0)
-    phi = torch.arccos(r) / 3.0
+    return q, p, torch.arccos(r) / 3.0
+
+
+def _smallest_eigenvalue(a00, a11, a22, a01, a02, a12):
+    q, p, phi = _eigen_angle(a00, a11, a22, a01, a02, a12)
     return q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0), p
 
 
-def smallest_eigvec_entries(a00, a11, a22, a01, a02, a12):
-    """Smallest eigenvector (vx, vy, vz) from the six unique entries.
-
-    Entries are same-shaped float32 tensors; degenerate inputs fall back to
-    (0, 0, 1).
-    """
-    lam, p = _smallest_eigenvalue(a00, a11, a22, a01, a02, a12)
-
-    # rows of (A - lam I); eigenvector = largest cross product of row pairs
+def _row_cross(a00, a11, a22, a01, a02, a12, lam):
+    """An eigenvector of ``lam``, unnormalised: the largest cross product
+    of two rows of (A - lam I)."""
     r0x, r0y, r0z = a00 - lam, a01, a02
     r1x, r1y, r1z = a01, a11 - lam, a12
     r2x, r2y, r2z = a02, a12, a22 - lam
@@ -101,7 +102,17 @@ def smallest_eigvec_entries(a00, a11, a22, a01, a02, a12):
     def pick(i):
         return torch.where(use01, c01[i], torch.where(use02, c02[i], c12[i]))
 
-    vx, vy, vz = pick(0), pick(1), pick(2)
+    return pick(0), pick(1), pick(2)
+
+
+def smallest_eigvec_entries(a00, a11, a22, a01, a02, a12):
+    """Smallest eigenvector (vx, vy, vz) from the six unique entries.
+
+    Entries are same-shaped float32 tensors; degenerate inputs fall back to
+    (0, 0, 1).
+    """
+    lam, p = _smallest_eigenvalue(a00, a11, a22, a01, a02, a12)
+    vx, vy, vz = _row_cross(a00, a11, a22, a01, a02, a12, lam)
     nrm = torch.sqrt(torch.clamp(vx * vx + vy * vy + vz * vz, min=0.0))
     ok = (nrm > 1e-20) & (p > 0)
     safe = torch.where(nrm > 0, nrm, torch.ones_like(nrm))
@@ -110,6 +121,33 @@ def smallest_eigvec_entries(a00, a11, a22, a01, a02, a12):
     vy = torch.where(ok, vy / safe, zero)
     vz = torch.where(ok, vz / safe, torch.ones_like(vz))
     return vx, vy, vz
+
+
+def _off_the_line(a00, a11, a22, a01, a02, a12, nx, ny, nz):
+    """The normal (nx, ny, nz) without its component along the largest
+    eigenvector, where that eigenvector is the better determined of the
+    two: its eigenvalue stands further from the middle one than the middle
+    one from the smallest. On a line-like neighbourhood (two small
+    eigenvalues) the cross products of the smallest eigenvalue's rows
+    cancel in float32, and the normal can lean on the line (by up to 25
+    degrees on an H100, ROADMAP fault 16), while those of the largest do
+    not cancel. Elsewhere the normal is already perpendicular to that
+    eigenvector, and this moves it by rounding alone."""
+    q, p, phi = _eigen_angle(a00, a11, a22, a01, a02, a12)
+    lam0 = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    lam2 = q + 2.0 * p * torch.cos(phi)
+    lam1 = 3.0 * q - lam0 - lam2
+    vx, vy, vz = _row_cross(a00, a11, a22, a01, a02, a12, lam2)
+    vn = torch.sqrt(vx * vx + vy * vy + vz * vz)
+    vn_safe = torch.where(vn > 0, vn, torch.ones_like(vn))
+    vx, vy, vz = vx / vn_safe, vy / vn_safe, vz / vn_safe
+    d = nx * vx + ny * vy + nz * vz
+    px, py, pz = nx - d * vx, ny - d * vy, nz - d * vz
+    pn = torch.sqrt(px * px + py * py + pz * pz)
+    use = (lam2 - lam1 > lam1 - lam0) & (vn > 1e-20) & (pn > 1e-3)
+    pn_safe = torch.where(use, pn, torch.ones_like(pn))
+    return (torch.where(use, px / pn_safe, nx), torch.where(use, py / pn_safe, ny),
+            torch.where(use, pz / pn_safe, nz))
 
 
 def smallest_eigenvector_sym3x3(mats: torch.Tensor):
@@ -131,8 +169,11 @@ def normals_from_entries(a00, a11, a22, a01, a02, a12, count) -> torch.Tensor:
     """float32[..., 3, N] unit normals from the six covariance entries
     (each [..., N]): the smallest eigenvector, signed so that its
     largest-magnitude component is positive; (0, 0, 1) where fewer than 3
-    neighbours were counted."""
+    neighbours were counted. The normal of a line-like neighbourhood is
+    taken off the line (``_off_the_line``), where the reference's leans on
+    it."""
     nx, ny, nz = smallest_eigvec_entries(a00, a11, a22, a01, a02, a12)
+    nx, ny, nz = _off_the_line(a00, a11, a22, a01, a02, a12, nx, ny, nz)
     ax, ay, az = torch.abs(nx), torch.abs(ny), torch.abs(nz)
     lead = torch.where((ax >= ay) & (ax >= az), nx, torch.where(ay >= az, ny, nz))
     flip = torch.where(lead < 0, -1.0, 1.0)

@@ -8,8 +8,9 @@ neighbours get (0, 0, 1).
 
 ``method='exact'`` is the hybrid radius + ``max_nn`` search over exact
 kNN (the oracle); ``'window'`` takes the covariance over every in-radius
-candidate of the curve window (``ops/window.py``, kernel K3); ``'auto'``
-picks exact at capacity <= 8192. Buffers may carry a batch axis.
+candidate of the curve window (``ops/window.py``: kernel K3, or its XLA
+route with ``window_backend='xla'``); ``'auto'`` picks exact at capacity
+<= 8192. Buffers may carry a batch axis.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ def estimate_normals(
     method: str = "auto",
     window_blocks: int | tuple = 2,
     passes: int = 2,
+    window_backend: str = "auto",
 ) -> ScanBuffer:
     """Attach float32[..., 3, capacity] unit normals as attribute
     ``normals``."""
@@ -54,7 +56,8 @@ def estimate_normals(
         ]
     elif method == "window":
         ent, count = window_normal_stats(
-            buf.positions, buf.mask, search_radius, window_blocks=window_blocks, passes=passes
+            buf.positions, buf.mask, search_radius, window_blocks=window_blocks, passes=passes,
+            backend=window_backend,
         )
         entries = ent.unbind(-2)
     else:

@@ -7,8 +7,8 @@ scan's live means are masked out. The threshold is taken per scan, so a
 batch (leading axis) filters each scan on its own.
 
 ``method='exact'`` uses exact kNN (the oracle), ``'window'`` the curve
-window (``ops/window.py``, kernel K3), ``'auto'`` picks exact at capacity
-<= 8192.
+window (``ops/window.py``: kernel K3, or its XLA route with
+``window_backend='xla'``), ``'auto'`` picks exact at capacity <= 8192.
 """
 from __future__ import annotations
 
@@ -42,6 +42,7 @@ def remove_statistical_outliers(
     window_blocks: int | tuple = 2,
     passes: int = 2,
     kmode: str = "sweep",
+    window_backend: str = "auto",
 ) -> ScanBuffer:
     """Mask out points with an anomalously large mean kNN distance."""
     if method == "auto":
@@ -56,7 +57,7 @@ def remove_statistical_outliers(
     elif method == "window":
         mean_d = window_mean_knn_dist(
             buf.positions, buf.mask, k=nb_neighbors, window_blocks=window_blocks,
-            passes=passes, kmode=kmode,
+            passes=passes, kmode=kmode, backend=window_backend,
         )
     else:
         raise ValueError(f"unknown kNN method {method!r}")

@@ -5,8 +5,8 @@ Port of ``autodriver_pointcloud_preprocessor_tpu/ops/radius_outliers.py``
 ``nb_points`` neighbours (self included) within ``search_radius`` are
 masked out. ``method='exact'`` counts among the ``exact_k`` nearest of
 exact kNN, ``'window'`` takes the in-radius count of the curve window
-(``window_normal_stats``, kernel K3), ``'auto'`` picks exact at capacity
-<= 8192. Buffers may carry a batch axis.
+(``window_normal_stats``: kernel K3, or its XLA route with
+``window_backend='xla'``), ``'auto'`` picks exact at capacity <= 8192. Buffers may carry a batch axis.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ def remove_radius_outliers(
     exact_k: int = 64,
     window_blocks: int | tuple = 2,
     passes: int = 2,
+    window_backend: str = "auto",
 ) -> ScanBuffer:
     """Mask out points with fewer than ``nb_points`` in-radius neighbours.
 
@@ -45,7 +46,8 @@ def remove_radius_outliers(
         count = ((sq <= r * r) & torch.isfinite(sq)).sum(-1)
     elif method == "window":
         _entries, count = window_normal_stats(
-            buf.positions, buf.mask, search_radius, window_blocks=window_blocks, passes=passes
+            buf.positions, buf.mask, search_radius, window_blocks=window_blocks, passes=passes,
+            backend=window_backend,
         )
     else:
         raise ValueError(f"unknown kNN method {method!r}")

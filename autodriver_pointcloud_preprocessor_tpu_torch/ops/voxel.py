@@ -17,8 +17,9 @@ a 60-bit key as an (hi, lo) int32 pair, two 32-bit keys of the int64
 sort passes), the caller's promise. The sort is stable, so among
 exact duplicates the first copy in buffer order donates the attributes:
 the reference's ``first_attrs=True``. Its ``first_attrs=False`` lets any
-copy donate, so this is one of its allowed outcomes too; the setting
-(``voxel_first_attrs``) changes nothing here. Integer attributes wider
+copy donate, so this is one of its allowed outcomes too; the keyword is
+taken, and neither it nor the setting (``voxel_first_attrs``) changes
+anything here. Integer attributes wider
 than 16 bits on the host (not exact in float32) take the value of the
 segment's first row by a gather: the row's index rides K2 as one more
 channel.
@@ -34,7 +35,7 @@ import torch
 from ..core.scan import ATTR_HOST_DTYPES, ScanBuffer
 from .dedup import _coordinate_keys, lexsort, signed_key
 from .segmean import segmented_sums
-from .compact import gather_columns
+from .compact import check_backend, gather_columns
 from .window import _SENTINEL, hilbert_cell_codes, hilbert_cell_codes_wide
 
 __all__ = ["sorted_voxel_channels", "voxel_downsample"]
@@ -49,8 +50,17 @@ def voxel_downsample(
     dedup_exact: bool = False,
     curve_order: bool = False,
     compact_keys: bool | str = False,
+    backend: str = "auto",
+    first_attrs: bool = True,
 ) -> ScanBuffer:
-    """Average live points within each cubic voxel of edge ``voxel_size``."""
+    """Average live points within each cubic voxel of edge ``voxel_size``.
+
+    Every ``backend`` of the reference takes K2: its ``"xla"`` route
+    (``segment_sum``) gives the same voxel means up to the float32
+    summation order, so the kernel computes that function too.
+    ``first_attrs``: see the module docstring.
+    """
+    check_backend(backend)
     channels, run_start, mean_rows, first_rows, gathered = sorted_voxel_channels(
         buf, voxel_size, dedup_exact, curve_order, compact_keys
     )

@@ -1,26 +1,44 @@
-"""Space-filling-curve window neighbourhoods (the main path's variant).
+"""Space-filling-curve window neighbourhoods: the kernel route and the XLA route.
 
 Port of ``autodriver_pointcloud_preprocessor_tpu/ops/window.py``: points
 are ordered along a 3-D Hilbert curve, and each 128-point block of the
-curve takes its neighbourhood statistics over a window of nearby blocks
-(kernel K3, ``ops/window_stats.py``). Several passes over axis-permuted,
-origin-shifted curves are min-merged, because a window only ever
-overestimates the kNN distance.
+curve takes its neighbourhood statistics over a window of nearby blocks.
+Several passes over axis-permuted, origin-shifted curves are merged (the
+kNN means by their minimum, because a window only ever overestimates the
+kNN distance; the covariances by the pass that found more neighbours).
 
-The reference's surface apart from its XLA fallback: the curve codes, the
-standalone window ops (``window_mean_knn_dist``, ``window_normal_stats``,
-one sort, K3 and one unsort a pass), and the fused neighbourhood in its
-unsorting (``fused_neighborhood_stats``) and reordering
-(``fused_neighborhood_stats_reordered``) forms, presorted or not, with
-the second radius's count, pass-merged or pass-0 normals, and the
-capacity shrink, and the Morton codes. There is one route: K3 on the
-card, its plain version on the CPU. Every curve sort takes an optional
-quantization box ``bounds=(lo, hi)`` (float32 [..., 3] each, one per scan):
-the sharded pipeline passes the global live box, so that every rank
-quantizes into the grid one device would use (``parallel/sharding.py``).
+The reference's whole surface: the curve codes (Hilbert and Morton), the
+standalone window ops (``window_mean_knn_dist``, ``window_normal_stats``)
+and the fused neighbourhood in its unsorting
+(``fused_neighborhood_stats``) and reordering
+(``fused_neighborhood_stats_reordered``) forms. Each takes the
+reference's ``backend``, which names one of two routes that compute two
+different functions:
 
-Sorts here are stable; the reference's re-sorts of later passes are not,
-so the two order ties (distinct points in one curve cell) differently.
+* the kernel route (``"auto"``, ``"pallas"``, ``"pallas_interpret"``):
+  kernel K3 (``ops/window_stats.py``) on a card, its plain version on the
+  CPU. The fused forms chain their passes through the curve sorts, take
+  the presorted input and the capacity shrink, the second radius's count,
+  pass-merged or pass-0 normals;
+* the XLA route (``"xla"``): the reference's plain fallback, plain
+  PyTorch on the tensors' device. Each pass sorts the input along its own
+  curve; a block's candidates are whole blocks, ``window_blocks`` each
+  side (0 widens to 1), gathered by rolls, so the window wraps from the
+  first block to the last; the kNN mean is an exact top-k over the
+  window and the covariance is centered over the in-radius candidates.
+  ``chunk_blocks`` bounds its working set and nothing else.
+
+The reference's ``"auto"`` takes the XLA route off the TPU; here it is
+the kernel route on every device (``default_backend``), so the XLA route
+runs only where a caller asks for it (``PipelineSettings(pallas_ok=False)``
+among them). Every curve sort takes an optional quantization box
+``bounds=(lo, hi)`` (float32 [..., 3] each, one per scan): the sharded
+pipeline passes the global live box, so that every rank quantizes into
+the grid one device would use (``parallel/sharding.py``).
+
+Sorts here are stable; the reference's re-sorts of later kernel-route
+passes are not, so the two order ties (distinct points in one curve cell)
+differently there.
 
 Everything takes an optional leading batch axis (positions [B, 3, N], mask
 [B, N]): bounds, sorts and windows are per scan, and each kernel launch
@@ -32,10 +50,13 @@ from typing import Sequence
 
 import torch
 
+from ..core.scan import ScanBuffer
+from .compact import check_backend, subsample_to
 from .linalg import normals_from_entries as _normals_from_entries
 from .window_stats import window_stats
 
 __all__ = [
+    "default_backend",
     "fused_neighborhood_stats",
     "fused_neighborhood_stats_reordered",
     "hilbert_cell_codes",
@@ -150,9 +171,10 @@ def hilbert_cell_codes_wide(cells, mask: torch.Tensor):
     return torch.where(mask, interleave(10), _SENTINEL), torch.where(mask, interleave(0), _SENTINEL)
 
 
-def morton_codes(positions, mask, origin_shift: float = 0.0) -> torch.Tensor:
-    """30-bit Morton (Z-order) code per point, invalid rows last."""
-    qx, qy, qz = _quantize_axes(positions, mask, origin_shift)
+def morton_codes(positions, mask, origin_shift: float = 0.0, bounds=None) -> torch.Tensor:
+    """30-bit Morton (Z-order) code per point, invalid rows last; ``bounds``
+    as in ``_quantize_axes``."""
+    qx, qy, qz = _quantize_axes(positions, mask, origin_shift, bounds)
     code = _spread_bits_10(qx) | (_spread_bits_10(qy) << 1) | (_spread_bits_10(qz) << 2)
     return torch.where(mask, code, _SENTINEL)
 
@@ -301,6 +323,156 @@ def _wb_per_pass(window_blocks, passes: int) -> tuple:
     return wbs
 
 
+def default_backend() -> str:
+    """The route ``backend="auto"`` takes: ``"pallas"``, the kernel route
+    (K3 on a card, its plain version on the CPU), on every device.
+
+    The reference picks by platform (its kernel on a TPU, the XLA route
+    elsewhere) and lets ``APC_WINDOW_BACKEND`` force a route, a switch its
+    tests use to run the kernel in interpret mode on a CPU mesh. The port
+    makes no platform pick and reads no environment variable: the XLA
+    route runs only where a caller asks for ``backend="xla"``.
+    """
+    return "pallas"
+
+
+def _xla_route(backend: str) -> bool:
+    """True for ``backend="xla"``, False for the kernel route's names;
+    anything else raises."""
+    return check_backend(backend) == "xla"
+
+
+# ---------------------------------------------------------------------------
+# the XLA route
+# ---------------------------------------------------------------------------
+
+def _window(blocks: torch.Tensor, num_rolls: int) -> torch.Tensor:
+    """[..., NB, B] -> [..., NB, (2R+1) * B]: each block's candidates, its
+    own block and ``num_rolls`` whole blocks each side, gathered by rolls
+    along the block axis (so the window wraps from the first block to the
+    last). ``num_rolls == 0`` is widened to one block a side: the route
+    has no sub-block window."""
+    num_rolls = max(num_rolls, 1)
+    return torch.cat(
+        [torch.roll(blocks, -r, dims=-2) for r in range(-num_rolls, num_rolls + 1)], dim=-1
+    )
+
+
+def _hilbert_order(positions, mask, pass_idx: int, bounds=None) -> torch.Tensor:
+    """Stable sort permutation of pass ``pass_idx``'s axis-permuted,
+    jittered curve: each sorted row's input index."""
+    return _curve_order(positions, mask, pass_idx, bounds)[1]
+
+
+def _sorted_window_arrays(positions, mask, block_size: int, window_blocks: int,
+                          pass_idx: int, bounds=None):
+    """Pass ``pass_idx``'s curve order, the sorted x/y/z/valid rows as
+    [..., NB, block_size] blocks and their candidate windows (``_window``):
+    ``(order, (sx, sy, sz, sv), (wx, wy, wz, wv))``."""
+    order = _hilbert_order(positions, mask, pass_idx, bounds)
+
+    def blocks(row):
+        return row.gather(-1, order).unflatten(-1, (-1, block_size))
+
+    rows = (*(blocks(positions[..., c, :]) for c in range(3)), blocks(mask))
+    return order, rows, tuple(_window(r, window_blocks) for r in rows)
+
+
+def _chunk_size(num_blocks: int, chunk_blocks: int) -> int:
+    """Largest divisor of ``num_blocks`` that is <= ``chunk_blocks``: the
+    chunks must cover every block (a halo-extended slab of 136 blocks
+    against 64-block chunks, for one)."""
+    cb = min(chunk_blocks, num_blocks)
+    while num_blocks % cb:
+        cb -= 1
+    return cb
+
+
+def _map_chunks(fn, num_blocks: int, chunk_blocks: int):
+    """``fn(ci)`` for each chunk of ``chunk_blocks`` blocks, its outputs
+    (a tensor or a tuple of them, blocks on axis -2) concatenated along
+    the block axis: the reference's ``lax.map``, which bounds the working
+    set and nothing else."""
+    assert num_blocks % chunk_blocks == 0, (num_blocks, chunk_blocks)
+    outs = [fn(ci) for ci in range(max(num_blocks // chunk_blocks, 1))]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts, dim=-2) for parts in zip(*outs))
+    return torch.cat(outs, dim=-2)
+
+
+def _squared_radius(radius, mask) -> torch.Tensor:
+    """``radius ** 2`` in float32 on the mask's device, shaped to broadcast
+    over [..., chunk, B, W] distance blocks (one radius, or one per scan).
+    A tensor radius stays on the device; nothing is read back."""
+    rad = torch.as_tensor(radius, dtype=torch.float32, device=mask.device)
+    r2 = rad * rad
+    if r2.numel() == 1:
+        return r2.reshape(())
+    return r2.reshape(mask.shape[:-1] + (1, 1, 1))
+
+
+def _xla_knn_pass(positions, mask, k, block_size, window_blocks, chunk_blocks, pass_idx,
+                  bounds):
+    """One XLA-route pass of the kNN mean: each query's mean distance to
+    its ``k`` nearest valid window candidates (an exact top-k; self
+    included), back in input order."""
+    order, (sx, sy, sz, _sv), (wx, wy, wz, wv) = _sorted_window_arrays(
+        positions, mask, block_size, window_blocks, pass_idx, bounds
+    )
+    nb = sx.shape[-2]
+    cb = _chunk_size(nb, chunk_blocks)
+    kk = min(k, wx.shape[-1])
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=sx.device)
+    zero = torch.zeros((), dtype=torch.float32, device=sx.device)
+
+    def chunk_fn(ci):
+        s = slice(ci * cb, (ci + 1) * cb)
+        dx = sx[..., s, :, None] - wx[..., s, None, :]
+        dy = sy[..., s, :, None] - wy[..., s, None, :]
+        dz = sz[..., s, :, None] - wz[..., s, None, :]
+        d = torch.where(wv[..., s, None, :], dx * dx + dy * dy + dz * dz, inf)
+        top = torch.topk(d, kk, dim=-1, largest=False).values
+        finite = torch.isfinite(top)
+        cnt = torch.clamp(finite.sum(-1), min=1)
+        return torch.where(finite, torch.sqrt(top), zero).sum(-1) / cnt
+
+    return _unsort(order, [_map_chunks(chunk_fn, nb, cb).flatten(-2)])[0]
+
+
+def _xla_normal_pass(positions, mask, r2, block_size, window_blocks, chunk_blocks, pass_idx,
+                     bounds):
+    """One XLA-route pass of the normal statistics: the centered covariance
+    entries [..., 6, N] (a00, a11, a22, a01, a02, a12) of each query's
+    in-radius valid window candidates (self included) and their count,
+    back in input order."""
+    order, (sx, sy, sz, _sv), (wx, wy, wz, wv) = _sorted_window_arrays(
+        positions, mask, block_size, window_blocks, pass_idx, bounds
+    )
+    nb = sx.shape[-2]
+    cb = _chunk_size(nb, chunk_blocks)
+
+    def chunk_fn(ci):
+        s = slice(ci * cb, (ci + 1) * cb)
+        cx, cy, cz = (w[..., s, None, :] for w in (wx, wy, wz))
+        dx = cx - sx[..., s, :, None]
+        dy = cy - sy[..., s, :, None]
+        dz = cz - sz[..., s, :, None]
+        d2 = dx * dx + dy * dy + dz * dz
+        w = (wv[..., s, None, :] & (d2 <= r2)).to(torch.float32)
+        cnt = w.sum(-1)
+        denom = torch.clamp(cnt, min=1.0)
+        ex, ey, ez = (c - ((w * c).sum(-1) / denom)[..., None] for c in (cx, cy, cz))
+        entries = torch.stack([
+            (w * a * b).sum(-1)
+            for a, b in ((ex, ex), (ey, ey), (ez, ez), (ex, ey), (ex, ez), (ey, ez))
+        ], dim=-3)
+        return entries, cnt
+
+    entries, cnt = _map_chunks(chunk_fn, nb, cb)
+    count, *rows = _unsort(order, [cnt.flatten(-2), *entries.flatten(-2).unbind(-2)])
+    return torch.stack(rows, dim=-2), count
+
+
 def _kernel_pass(positions, mask, pass_idx, k, radius, window_blocks,
                  kmode="sweep", moments=True, bounds=None):
     """One curve pass through K3: the reference's ``_pallas_pass``.
@@ -323,16 +495,31 @@ def _kernel_pass(positions, mask, pass_idx, k, radius, window_blocks,
 
 
 def window_mean_knn_dist(positions, mask, k: int, window_blocks: int | tuple = 2,
-                         passes: int = 2, kmode: str = "sweep", bounds=None) -> torch.Tensor:
+                         passes: int = 2, kmode: str = "sweep", bounds=None,
+                         block_size: int = 128, chunk_blocks: int = 64,
+                         backend: str = "auto") -> torch.Tensor:
     """Mean distance to the k nearest window candidates (self included),
     min-merged over ``passes`` curve passes; float32[..., N] in input
     order, 0 on masked-out rows. Backs statistical outlier removal.
-    ``bounds``: the curve sorts' quantization box (``_quantize_axes``)."""
+
+    ``backend``: ``"xla"`` takes the XLA route (an exact top-k over whole
+    ``block_size``-row blocks, ``chunk_blocks`` blocks at a time; ``kmode``
+    is ignored), any other of the reference's names the kernel route (K3,
+    which ignores ``block_size`` and ``chunk_blocks``; see the module
+    docstring). ``bounds``: the curve sorts' quantization box
+    (``_quantize_axes``)."""
     wbs = _wb_per_pass(window_blocks, passes)
+    best = None
+    if _xla_route(backend):
+        block_size = min(block_size, positions.shape[-1])
+        for p_i in range(passes):
+            mean = _xla_knn_pass(positions, mask, k, block_size, wbs[p_i], chunk_blocks, p_i,
+                                 bounds)
+            best = mean if best is None else torch.minimum(best, mean)
+        return _masked(best, mask)
     # no moments, so any radius: a device zero (a host scalar's copy would
     # synchronise the stream)
     radius = torch.zeros((), dtype=torch.float32, device=positions.device)
-    best = None
     for p_i in range(passes):
         mean, _, _ = _kernel_pass(
             positions, mask, p_i, k, radius, wbs[p_i], kmode, moments=False, bounds=bounds
@@ -342,20 +529,42 @@ def window_mean_knn_dist(positions, mask, k: int, window_blocks: int | tuple = 2
 
 
 def window_normal_stats(positions, mask, radius, window_blocks: int | tuple = 2,
-                        passes: int = 2, bounds=None):
+                        passes: int = 2, bounds=None, block_size: int = 128,
+                        chunk_blocks: int = 64, backend: str = "auto"):
     """In-radius covariance entries over the curve window, per point.
 
     Returns ``(cov_entries float32[..., 6, N], count float32[..., N])`` in
     input order: entries (a00, a11, a22, a01, a02, a12) of the centered
     covariance of the in-radius candidates (self included); each point
     keeps the pass that found more of them. Count is 0 on masked-out rows.
-    Backs normal estimation and radius outlier removal. ``bounds``: the
-    curve sorts' quantization box (``_quantize_axes``).
+    Backs normal estimation and radius outlier removal. ``backend``,
+    ``block_size`` and ``chunk_blocks`` as in ``window_mean_knn_dist``;
+    ``bounds``: the curve sorts' quantization box (``_quantize_axes``).
+
+    Deliberate deviation on the XLA route: a non-finite invalid row makes
+    the reference's entries NaN on every live row whose window holds it;
+    here invalid rows are zeroed first, so every live row's entries are
+    finite, and the others are unchanged.
     """
     wbs = _wb_per_pass(window_blocks, passes)
+    if _xla_route(backend):
+        block_size = min(block_size, positions.shape[-1])
+        r2 = _squared_radius(radius, mask)
+        # invalid rows zeroed: the route weights every candidate by 0 or 1,
+        # and the reference's NaN rows poison each live row whose window
+        # holds one (0 * NaN); zeros change no finite result
+        positions = torch.where(mask.unsqueeze(-2), positions, 0.0)
+        passes_out = (
+            _xla_normal_pass(positions, mask, r2, block_size, wbs[p_i], chunk_blocks, p_i, bounds)
+            for p_i in range(passes)
+        )
+    else:
+        passes_out = (
+            _kernel_pass(positions, mask, p_i, 1, radius, wbs[p_i], bounds=bounds)[1:]
+            for p_i in range(passes)
+        )
     entries = counts = None
-    for p_i in range(passes):
-        _mean, e2, c2 = _kernel_pass(positions, mask, p_i, 1, radius, wbs[p_i], bounds=bounds)
+    for e2, c2 in passes_out:
         if entries is None:
             entries, counts = e2, c2
         else:
@@ -475,17 +684,30 @@ def fused_neighborhood_stats(
     entries_merge: bool = True,
     carry_count: bool = True,
     bounds=None,
+    backend: str = "auto",
 ):
     """One shared neighbourhood sweep for statistical outliers and normals,
     statistics back in input order.
 
-    The passes of ``_fused_passes`` with the input index carried, then one
-    unsort. Returns ``(mean_knn [..., N], normals [..., 3, N], count
-    [..., N][, count2 [..., N]])``; mean, count and count2 are 0 on
-    masked-out rows. ``count2`` (with ``radius2``) is the in-radius2
-    count, max-merged across passes. ``bounds``: the curve sorts'
+    The kernel route: the passes of ``_fused_passes`` with the input index
+    carried, then one unsort. The XLA route (``backend="xla"``) composes
+    ``window_mean_knn_dist`` and ``window_normal_stats`` (and a second
+    ``window_normal_stats`` for ``radius2``), as the reference does; it
+    ignores ``kmode``, ``entries_merge`` and ``carry_count``. Returns
+    ``(mean_knn [..., N], normals [..., 3, N], count [..., N][, count2
+    [..., N]])``; mean, count and count2 are 0 on masked-out rows.
+    ``count2`` (with ``radius2``) is the in-radius2 count, max-merged
+    across the kernel route's passes. ``bounds``: the curve sorts'
     quantization box (``_quantize_axes``; the sharded pipeline's global box).
     """
+    if _xla_route(backend):
+        kw = dict(window_blocks=window_blocks, passes=passes, bounds=bounds, backend="xla")
+        mean = window_mean_knn_dist(positions, mask, k=k, **kw)
+        entries, count = window_normal_stats(positions, mask, radius, **kw)
+        out = (mean, _normals_from_entries(*entries.unbind(-2), count), count)
+        if radius2 is None:
+            return out
+        return out + (window_normal_stats(positions, mask, radius2, **kw)[1],)
     n = positions.shape[-1]
     idx = torch.arange(n, device=positions.device).expand(mask.shape)
     _sx, _sy, _sz, _sv, (order,), mean, count, nrm, cnt2 = _fused_passes(
@@ -514,23 +736,46 @@ def fused_neighborhood_stats_reordered(
     entries_merge: bool = True,
     carry_count: bool = True,
     bounds=None,
+    backend: str = "auto",
 ):
     """``fused_neighborhood_stats`` that reorders the buffer instead of
     unsorting the statistics.
 
-    Positions, mask and attributes ride the curve sorts and come back in
-    the last pass's curve order, statistics aligned (the pipeline has no
-    point-order contract after the voxel stage). ``presorted``: the input
-    is front-compacted and in pass-0 curve order (the curve-ordered voxel
-    stage), so pass 0 needs no sort. ``shrink_to`` (multiple of 128, 0 =
-    off) shrinks the buffer to that capacity. Positions [..., 3, N], mask
-    [..., N] and attributes [..., N] / [..., C, N] may carry a batch axis.
-    ``bounds``: the curve sorts' quantization box (``_quantize_axes``).
+    The kernel route: positions, mask and attributes ride the curve sorts
+    and come back in the last pass's curve order, statistics aligned (the
+    pipeline has no point-order contract after the voxel stage).
+    ``presorted``: the input is front-compacted and in pass-0 curve order
+    (the curve-ordered voxel stage), so pass 0 needs no sort. ``shrink_to``
+    (multiple of 128, 0 = off) shrinks the buffer to that capacity.
 
-    Returns ``(positions, mask, attrs, mean_knn, normals, count[,
-    count2])``; mean, count and count2 are zero on invalid rows.
+    The XLA route (``backend="xla"``), as the reference's: ``shrink_to``
+    is ``subsample_to`` first, then ``fused_neighborhood_stats`` on its
+    route and, with ``radius2``, a second ``window_normal_stats`` for the
+    count; the buffer comes back in its own order and ``presorted`` is
+    ignored.
+
+    Positions [..., 3, N], mask [..., N] and attributes [..., N] /
+    [..., C, N] may carry a batch axis. ``bounds``: the curve sorts'
+    quantization box (``_quantize_axes``). Returns ``(positions, mask,
+    attrs, mean_knn, normals, count[, count2])``; mean, count and count2
+    are zero on invalid rows.
     """
     n = positions.shape[-1]
+    if _xla_route(backend):
+        if shrink_to and shrink_to < n:
+            b = subsample_to(ScanBuffer(positions=positions, mask=mask, attributes=attrs),
+                             shrink_to)
+            positions, mask, attrs = b.positions, b.mask, dict(b.attributes)
+        out = (positions, mask, attrs) + fused_neighborhood_stats(
+            positions, mask, k=k, radius=radius, window_blocks=window_blocks, passes=passes,
+            bounds=bounds, backend="xla",
+        )
+        if radius2 is None:
+            return out
+        return out + (window_normal_stats(
+            positions, mask, radius2, window_blocks=window_blocks, passes=passes, bounds=bounds,
+            backend="xla",
+        )[1],)
     lead = mask.shape[:-1]
     flat, specs = [], []
     for name, v in attrs.items():

@@ -51,9 +51,9 @@ from ..models import graphs
 from ..models.pipeline import (
     PipelineParams,
     PipelineSettings,
-    _check_supported,
     _select_scans,
     draw_uniforms,
+    window_backend,
 )
 from ..ops.compact import gather_columns
 from ..ops.ground import _fit_planes_batched
@@ -231,6 +231,19 @@ def _resolve_knn_method(settings: PipelineSettings, local_capacity: int, axis: _
     return "exact" if local_capacity * axis.size <= _AUTO_EXACT_MAX else "window"
 
 
+def _window_kwargs(settings: PipelineSettings) -> dict:
+    """The window knobs of the standalone sharded stages, as the
+    pipeline's unfused stages take them: the reference's backend (``"xla"``
+    for ``pallas_ok=False``), ``window_blocks`` (an int or a per-pass
+    tuple) and the passes."""
+    wb = settings.window_blocks
+    return dict(
+        window_backend=window_backend(settings),
+        window_blocks=wb if isinstance(wb, int) else tuple(wb),
+        passes=settings.neighborhood_passes,
+    )
+
+
 def _global_outlier_keep(mask, mean_d, std_ratio, axis: _Axis) -> torch.Tensor:
     """Keep-mask from the exact global mean and (population) standard
     deviation of the live kNN means: one all_reduce of (count, sum, sum of
@@ -305,16 +318,18 @@ def _sharded_outliers(buf, settings, std_ratio, axis: _Axis, halo):
         mean_d = window_mean_knn_dist(
             pos, msk, k=settings.nb_neighbors, window_blocks=settings.window_blocks,
             passes=settings.neighborhood_passes, kmode=settings.knn_kmode, bounds=bounds,
+            backend=window_backend(settings),
         )[..., h : h + buf.capacity]
     return buf.replace(mask=_global_outlier_keep(buf.mask, mean_d, std_ratio, axis))
 
 
 def _sharded_fused_neighborhood(buf, settings, params, axis: _Axis, halo, fuse_radius):
     """The pipeline's fused neighbourhood, sharded: one window sweep over
-    the halo-extended slab (K3, the unsorting ``fused_neighborhood_stats``)
-    feeds the statistical outliers (global threshold), the normals and,
-    with ``fuse_radius``, the radius-outlier count, with the pipeline's
-    knobs; neighbourhoods are those of the pre-outlier cloud."""
+    the halo-extended slab (the unsorting ``fused_neighborhood_stats``: K3,
+    or the XLA route with ``pallas_ok=False``) feeds the statistical
+    outliers (global threshold), the normals and, with ``fuse_radius``,
+    the radius-outlier count, with the pipeline's knobs; neighbourhoods
+    are those of the pre-outlier cloud."""
     bounds = _global_live_bounds(buf.positions, buf.mask, axis)
     pos, msk, h = _halo_exchange(buf.positions, buf.mask, axis, halo)
     out = fused_neighborhood_stats(
@@ -323,6 +338,7 @@ def _sharded_fused_neighborhood(buf, settings, params, axis: _Axis, halo, fuse_r
         kmode=settings.knn_kmode,
         radius2=params.radius_search_radius if fuse_radius else None,
         entries_merge=settings.normals_merge_passes, bounds=bounds,
+        backend=window_backend(settings),
     )
     n = buf.capacity
     keep = _global_outlier_keep(buf.mask, out[0][..., h : h + n], params.std_ratio, axis)
@@ -341,7 +357,7 @@ def _window_stats_local(buf, settings, radius, axis: _Axis, halo):
     pos, msk, h = _halo_exchange(buf.positions, buf.mask, axis, halo)
     entries, count = window_normal_stats(
         pos, msk, radius, window_blocks=settings.window_blocks,
-        passes=settings.neighborhood_passes, bounds=bounds,
+        passes=settings.neighborhood_passes, bounds=bounds, backend=window_backend(settings),
     )
     n = buf.capacity
     return entries[..., h : h + n], count[..., h : h + n]
@@ -353,7 +369,7 @@ def _sharded_radius_outliers(buf, settings, params, axis: _Axis, halo, method):
     if method == "exact":
         return ops.remove_radius_outliers(
             buf, params.radius_nb_points, params.radius_search_radius, method="exact",
-            window_blocks=settings.window_blocks, passes=settings.neighborhood_passes,
+            **_window_kwargs(settings),
         )
     _entries, count = _window_stats_local(buf, settings, params.radius_search_radius, axis, halo)
     return buf.with_mask(count >= params.radius_nb_points)
@@ -365,7 +381,7 @@ def _sharded_normals(buf, settings, params, axis: _Axis, halo, method):
     if method == "exact":
         return ops.estimate_normals(
             buf, params.search_radius, settings.max_neighbors, method="exact",
-            window_blocks=settings.window_blocks, passes=settings.neighborhood_passes,
+            **_window_kwargs(settings),
         )
     entries, count = _window_stats_local(buf, settings, params.search_radius, axis, halo)
     attrs = dict(buf.attributes)
@@ -626,7 +642,6 @@ def make_local_run(
     """
     if halo % 128 != 0:
         raise ValueError(f"halo must be a multiple of 128, got {halo}")
-    _check_supported(settings)
     axis = _Axis.of(make_mesh(mesh, axis_name), axis_name)
     stages = _local_stages(settings, axis, halo)
 

@@ -182,9 +182,10 @@ replay credits; ``build_pipeline`` calls stay eager.
     the engine's body run eagerly) with the same draws: production, config
     2, QUALITY, configs 6 and 7, the defaults, each downsampler (FPS 3
     timed scans) and the height cut bit for bit (mask, positions,
-    attributes, normals, plane) with equal launch counts; one replay
-    traced with torch.profiler runs exactly the K1/K2/K3 kernels its
-    program credits; ms/scan p50 and p90 ``from_soa``..``to_soa`` and of
+    attributes, normals, plane) with equal launch counts; three replays,
+    each traced alone with torch.profiler (the window open 50 ms before
+    and after it), each run exactly the K1/K2/K3 kernels its program
+    credits; ms/scan p50 and p90 ``from_soa``..``to_soa`` and of
     the pipeline alone, graphed and eager in turns; capture ms and graph
     pool MB. B=8 vmapped and sequential the same way, with ms/scan.
     ``update_config({"voxel_size": 0.08})`` and three TFs after the
@@ -206,6 +207,26 @@ replay credits; ``build_pipeline`` calls stay eager.
     at B = 1..16, the pools and the memory reserved within the bound
     after each capture, evicted programs gone.
 
+The reference's XLA window route (``PipelineSettings(pallas_ok=False)``:
+the window stages take ``ops/window.py``'s XLA route, whole-block rolled
+windows and an exact top-k, with no K3; K1 and K2 stay):
+
+33. (y) Production, config 2 and config 6 (1,000,000 points, one timed
+    run each way) on the engine, each replay bit-equal to the same run
+    eagerly with the same draws, launches 1/1/0, 0/1/0 and 1/1/0 a scan
+    both ways; ms/scan p50 and p90 graphed and eager in turns, capture ms
+    and pool MB; the card against the CPU with the same draws (jaccard >=
+    0.99, >= 98% of common normals within 2 degrees); the jaccard against
+    the kernel route on the same scan, printed with no bound (another
+    function). Then config 6's sharded step with ``pallas_ok=False`` in
+    the NCCL world of ``device_count()`` ranks, captured against its eager
+    body on two draws, bit for bit (0/1/0 a step), p50 and p90 both ways.
+34. (z) The committed fixtures on the card:
+    ``tests/test_torch_fixture_parity.py``'s checks (the
+    ``parity_golden.npz`` stages, the ring-scene pipeline window against
+    exact and its window floors, the HDL-32E floor; each window check on
+    the kernel route and the XLA route) at that file's tolerances.
+
 With ``--profile DIR`` it also traces, with torch.profiler, 5 single scans
 and one vmapped batch of the production preset and of config 2, 5
 QUALITY scans, 5 scans of each path of phases 17-22 (3 of config 6, 1 of
@@ -213,7 +234,8 @@ FPS and of config 7 in scene order), and (27, phase (s)) 5 revolutions of
 config 5's replay and of phase (r), and (r)'s batch of 8, 5 callbacks of
 the node and of the pipelined node, 2 graph rounds, one sharded step
 on rank 0 (``DIR/sharded/profile.txt``), and 5 scans of each phase-(x)
-path graphed and eager (3 for FPS, a batch for B=8), and writes the
+path graphed and eager (3 for FPS, a batch for B=8) and of production
+and config 2 on the XLA route, and writes the
 time per operator (device and host) to ``DIR/profile.txt``, each table
 headed by its device-busy share, kernel launches, graph launches and
 syncs.
@@ -2035,19 +2057,26 @@ def shard_job_backend(r: ShardRank, profile_dir=None):
     r.save_output("slab", out, plane)
 
 
-def shard_job_captured(r: ShardRank, profile_dir=None):
+def shard_job_captured(r: ShardRank, profile_dir=None, xla=False):
     """Config 6's step in an NCCL world, one rank a card:
     ``build_sharded_pipeline``'s captured step against ``make_local_run``'s
     eager body with the same draws, bit for bit (mask, positions,
     attributes, normals, plane), with the same launches and collectives a
     step (the replay's credited), on the capture's draws and on others;
     then both timed in turns (rank 0's CUDA events, a barrier before each
-    step, the run alone on the sharded slab)."""
+    step, the run alone on the sharded slab). ``xla``: the step with
+    ``pallas_ok=False`` (the XLA window route: no K3)."""
+    import dataclasses
+
     from autodriver_pointcloud_preprocessor_tpu_torch.models import graphs
     from autodriver_pointcloud_preprocessor_tpu_torch.ops import _build
 
     sh = r.sh
     buf, settings, params, draws = config6_step_inputs(r)
+    want_launches = SHARD_LAUNCHES
+    if xla:
+        settings = dataclasses.replace(settings, pallas_ok=False)
+        want_launches = SHARD_LAUNCHES[:2] + (0,)
     check(sh.captures_step(r.group, r.dev), f"(w) NCCL rank {r.rank}: the step would not capture")
     step = sh.build_sharded_pipeline(settings, r.mesh, "point", SHARD_HALO)
     eager = sh.make_local_run(settings, "point", SHARD_HALO, r.mesh)
@@ -2077,7 +2106,7 @@ def shard_job_captured(r: ShardRank, profile_dir=None):
         want = counted(lambda u: eager(local, params, None, u), u)
         check(same_tree(got[0], want[0]),
               f"(w) NCCL rank {r.rank} of {r.world}: the captured step differs from the eager one")
-        check(got[1] == want[1] == SHARD_LAUNCHES,
+        check(got[1] == want[1] == want_launches,
               f"(w) NCCL rank {r.rank}: launches captured {got[1]}, eager {want[1]}")
         check(got[2] == want[2], f"(w) NCCL rank {r.rank}: collectives {got[2]} vs {want[2]}")
     prog = graphs.programs()[-1]
@@ -2100,7 +2129,7 @@ def shard_job_captured(r: ShardRank, profile_dir=None):
     tg = timed(lambda: run_step(draws), half)
     te = timed(lambda: eager(local, params, None, draws), SHARD_TIMED)
     tg += timed(lambda: run_step(draws), SHARD_TIMED - half)
-    if profile_dir:  # one traced step each way on rank 0 (every rank runs them)
+    if profile_dir and not xla:  # one traced step each way on rank 0 (every rank runs them)
         import os
 
         runs = [(f"sharded config 6 captured: 1 step, rank 0 of {r.world} NCCL",
@@ -2125,7 +2154,8 @@ def shard_job_captured(r: ShardRank, profile_dir=None):
 
 
 SHARD_JOBS = {"card": shard_job_card, "cpu": shard_job_cpu, "backend": shard_job_backend,
-              "captured": shard_job_captured}
+              "captured": shard_job_captured,
+              "captured_xla": lambda r, profile_dir=None: shard_job_captured(r, xla=True)}
 
 
 def shard_rank(rank, world, backend, device, store, out_dir, job, profile_dir):
@@ -2604,6 +2634,16 @@ def second_card(dev, production_cfg):
     return True
 
 
+#: seconds the tracer's window stays open before and after a traced
+#: replay (phase (x)): more than any skew of the card's clock against the
+#: host's, which would cut device records off the window's ends
+TRACE_MARGIN_S = 0.05
+#: traced replays of each phase-(x) program, each held to its credits
+TRACE_REPEATS = 3
+#: host calls that enqueue device work (the start of a traced replay)
+ENQUEUE_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
 def graph_slice(dev, production_cfg, round_handle):
     """Phase (x): every engine path as a captured program against the same
     path run eagerly with the same draws (see the module docstring), then
@@ -2625,7 +2665,7 @@ def graph_slice(dev, production_cfg, round_handle):
     from autodriver_pointcloud_preprocessor_tpu_torch.ops import _build
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    paths, launches, profile = {}, {}, []
+    paths, launches, profile, leads = {}, {}, [], []
     check(settings_from_config(CONFIG6_NAMED) == PipelineSettings(**CONFIG6_SETTINGS),
           "(x) CONFIG6_NAMED does not give config 6's settings")
 
@@ -2633,15 +2673,39 @@ def graph_slice(dev, production_cfg, round_handle):
         return dict(zip(KERNELS, (_build.LAUNCHES[k] for k in KERNELS)))
 
     def replay_trace(tag, prog, *args):
-        """One replay under torch.profiler: the K1/K2/K3 kernels the trace
-        shows must be the launches the program credits."""
-        with torch.profiler.profile(activities=acts) as prof:
-            prog(*args)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        seen = {k: sum(f"{k}_kernel" in n for n in names) for k in KERNELS}
-        check(seen == prog.credits, f"(x) {tag}: one replay ran {seen}, credited {prog.credits}")
-        return seen, len(names)
+        """``TRACE_REPEATS`` replays, each alone under torch.profiler: the
+        K1/K2/K3 kernels each trace shows must be the launches the program
+        credits. The tracer keeps a device record only where its time,
+        taken to the host's clock, lies inside the window that it opened
+        and closed on the host, so a replay enqueued the moment the window
+        opens loses its first records to any skew of the two clocks. The
+        card is idle when the window opens, which it does
+        ``TRACE_MARGIN_S`` before the replay is enqueued, and it closes as
+        long after the card is idle again. Each trace's lead, its first
+        device record's start less the start of the first host call that
+        enqueued device work, goes to ``leads``: a negative lead is the
+        clocks' skew."""
+        for _ in range(TRACE_REPEATS):
+            torch.cuda.synchronize()  # no earlier work runs in the window
+            with torch.profiler.profile(activities=acts) as prof:
+                time.sleep(TRACE_MARGIN_S)
+                prog(*args)
+                torch.cuda.synchronize()
+                time.sleep(TRACE_MARGIN_S)
+            events = prof.events()
+            device = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+                            key=lambda e: e.time_range.start)
+            enqueued = min((e.time_range.start for e in events
+                            if e.device_type == torch.autograd.DeviceType.CPU
+                            and e.name.startswith(ENQUEUE_CALLS)), default=float("nan"))
+            seen = {k: sum(f"{k}_kernel" in e.name for e in device) for k in KERNELS}
+            leads.append(device[0].time_range.start - enqueued if device else float("nan"))
+            head = "; ".join(f"{e.name[:48]} at {e.time_range.start:.1f}" for e in device[:3])
+            check(seen == prog.credits,
+                  f"(x) {tag}: one replay ran {seen} in {len(device)} device ops, credited "
+                  f"{prog.credits} (us into the window: first enqueue {enqueued:.1f}, first "
+                  f"device records {head})")
+        return seen, len(device)
 
     def program_stats(prog):
         return {"capture_ms": prog.capture_ms, "pool_mb": prog.pool_bytes / 2**20}
@@ -2694,8 +2758,8 @@ def graph_slice(dev, production_cfg, round_handle):
         paths[tag] = row
         launches[f"graph_{tag}"] = graphed
         print(f"[chip_smoke] (x) {tag}: graphed == eager bit for bit ({n} survivors, normals and "
-              f"plane), launches {json.dumps(graphed)} a scan both ways, a replay traced "
-              f"{json.dumps(seen)} of {nodes} device ops; capture {prog.capture_ms:.1f} ms, pool "
+              f"plane), launches {json.dumps(graphed)} a scan both ways, each of "
+              f"{TRACE_REPEATS} replays traced {json.dumps(seen)} of {nodes} device ops; capture {prog.capture_ms:.1f} ms, pool "
               f"{prog.pool_bytes / 2**20:.1f} MB; ms/scan from_soa..to_soa p50/p90 graphed "
               f"{row['scan_graphed_ms'][0]:.3f}/{row['scan_graphed_ms'][1]:.3f}, eager "
               f"{row['scan_eager_ms'][0]:.3f}/{row['scan_eager_ms'][1]:.3f}; pipeline alone "
@@ -2768,7 +2832,8 @@ def graph_slice(dev, production_cfg, round_handle):
                       **program_stats(prog), "kernels_a_replay": seen, "device_ops_a_replay": nodes}
         launches[f"graph_{tag}"] = graphed
         print(f"[chip_smoke] (x) B={BATCH} {mode}: graphed == eager bit for bit, launches "
-              f"{json.dumps(graphed)} a batch both ways, a replay traced {json.dumps(seen)}; "
+              f"{json.dumps(graphed)} a batch both ways, each of {TRACE_REPEATS} replays traced "
+              f"{json.dumps(seen)}; "
               f"capture {prog.capture_ms:.1f} ms, pool {prog.pool_bytes / 2**20:.1f} MB; ms/scan "
               f"(device buffers in and out, median of 5 batches) graphed {paths[tag]['ms_per_scan_graphed'][0]:.3f}, "
               f"eager {paths[tag]['ms_per_scan_eager'][0]:.3f}")
@@ -2859,8 +2924,202 @@ def graph_slice(dev, production_cfg, round_handle):
     paths["round_merge"] = merge_round(round_handle)
     paths["second_card"] = second_card(dev, production_cfg)
     paths["cache_bound"] = cache_bound(dev, production_cfg)
+    paths["traced_replays"] = {"traces": len(leads), "margin_s": TRACE_MARGIN_S,
+                               "lead_us_min": min(leads), "lead_us_max": max(leads)}
+    print(f"[chip_smoke] (x) {len(leads)} traced replays, each showing every kernel its program "
+          f"credits; lead of the first device record over the first enqueue min "
+          f"{min(leads):.1f} us, max {max(leads):.1f} us (window margin {TRACE_MARGIN_S} s)")
     print(f"[chip_smoke] (x) phase (x) took {time.perf_counter() - t_all:.1f} s")
     return {"paths": paths, "launches": launches, "profile": profile}
+
+
+# ---- the XLA window route: PipelineSettings(pallas_ok=False) (phase (y)) ----
+
+#: K1, K2, K3 launches a scan with pallas_ok=False: compaction and the
+#: voxel stage keep K1 and K2; the window stages take the XLA route
+XLA_LAUNCHES = {"production": (1, 1, 0), "config2": (0, 1, 0), "config6": (1, 1, 0)}
+
+
+def xla_slice(dev):
+    """Phase (y): production, config 2 and config 6 (1,000,000 points,
+    one timed run each way: its windows take 50 chunks a pass) with
+    ``pallas_ok=False``, each a captured program of the engine
+    (``Preprocessor(cfg, pallas_ok=False)``, the user's entry) against the
+    same run eagerly with the same draws, bit for bit with the launches of
+    ``XLA_LAUNCHES``; ms/scan graphed and eager in turns, capture ms and
+    pool MB; the card against the CPU with the same draws (jaccard >=
+    0.99, >= 98% of common normals within 2 degrees); the jaccard against
+    the kernel route on the same scan (another function: no bound); then
+    one sharded config-6 step with ``pallas_ok=False`` captured against
+    its eager body in the NCCL world of ``device_count()`` ranks."""
+    import dataclasses
+
+    from autodriver_pointcloud_preprocessor_tpu_torch.core import from_soa, to_soa
+    from autodriver_pointcloud_preprocessor_tpu_torch.models import graphs
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.pipeline import (
+        build_pipeline, draw_uniforms, params_from_config,
+    )
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.preprocessor import Preprocessor
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.presets import PRODUCTION_128K_CONFIG
+    from autodriver_pointcloud_preprocessor_tpu_torch.ops import _build
+
+    cpu = torch.device("cpu")
+    paths, launches, profile = {}, {}, []
+
+    def counts():
+        return tuple(_build.LAUNCHES[k] for k in KERNELS)
+
+    def survivors(out, normals):
+        m = out.mask.cpu().numpy()
+        pos = out.positions.cpu().numpy()[:, m].T
+        nrm = (out.attributes["normals"].cpu().numpy()[:, m].T if normals
+               else np.zeros_like(pos))
+        return survivor_normals({"positions": pos, "normals": nrm})
+
+    def xla_path(tag, cfg, soa, capacity, timed):
+        t0 = time.perf_counter()
+        engine = Preprocessor(cfg, seed=0, pallas_ok=False)
+        s = engine.settings
+        run = build_pipeline(s)
+        gu = torch.from_numpy(np.random.default_rng(7).uniform(
+            size=(s.num_iterations, s.ransac_n)).astype(np.float32)).to(dev)
+        draws = draw_uniforms(s, (), capacity, None, dev, gu)
+        buf, _ = from_soa(soa, capacity=capacity, device=dev)
+        _build.reset_launches()
+        got = engine.process_buffer(buf, gu)  # the capture and one replay
+        torch.cuda.synchronize()
+        graphed = counts()
+        _build.reset_launches()
+        want = run(buf, engine.params, None, *draws)
+        torch.cuda.synchronize()
+        eager = counts()
+        check(graphed == eager == XLA_LAUNCHES[tag],
+              f"(y) {tag}: launches graphed {graphed}, eager {eager}, expected {XLA_LAUNCHES[tag]}")
+        check(same_tree(got, want), f"(y) {tag}: graphed output differs from the eager run's")
+        prog = graphs.lookup(("engine", "scan", s), (buf, engine.params, draws))
+        check(prog is not None and prog.credits == dict(zip(KERNELS, XLA_LAUNCHES[tag])),
+              f"(y) {tag}: no program, or its credits differ")
+        _build.reset_launches()
+        check(same_tree(engine.process_buffer(buf, gu), want) and counts() == XLA_LAUNCHES[tag],
+              f"(y) {tag}: a second replay differs")
+
+        def scan_graphed():
+            b, m = from_soa(soa, capacity=capacity, device=dev)
+            return to_soa(engine.process_buffer(b, gu)[0], m)
+
+        def scan_eager():
+            b, m = from_soa(soa, capacity=capacity, device=dev)
+            return to_soa(run(b, engine.params, None, *draws)[0], m)
+
+        half = max(timed // 2, 1)  # in turns: graphed, eager, eager, graphed
+        tg = call_ms(scan_graphed, half)
+        te = call_ms(scan_eager, half) + call_ms(scan_eager, timed - half)
+        tg += call_ms(scan_graphed, timed - half)
+        normals = s.estimate_normals
+        card = survivors(want[0], normals)
+        t1 = time.perf_counter()
+        cpu_out = run(from_soa(soa, capacity=capacity, device=cpu)[0],
+                      params_from_config(cfg, device=cpu), None,
+                      *(None if d is None else d.cpu() for d in draws))
+        cpu_s = time.perf_counter() - t1
+        host = survivors(cpu_out[0], normals)
+        common = card.keys() & host.keys()
+        j = len(common) / max(len(card.keys() | host.keys()), 1)
+        cos = np.array([abs(float(np.dot(card[p], host[p]))) for p in common])
+        normals_ok = float((cos >= np.cos(np.deg2rad(2.0))).mean()) if normals else 1.0
+        check(j >= 0.99, f"(y) {tag}: card vs CPU jaccard {j:.5f} < 0.99")
+        check(normals_ok >= 0.98, f"(y) {tag}: only {normals_ok:.5f} of normals within 2 degrees")
+        kernel_route = build_pipeline(dataclasses.replace(s, pallas_ok=True))(
+            buf, engine.params, None, *draws)
+        kr = survivors(kernel_route[0], False)
+        j_kernel = len(card.keys() & kr.keys()) / max(len(card.keys() | kr.keys()), 1)
+        row = {"scan_graphed_ms": p50_p90(tg), "scan_eager_ms": p50_p90(te),
+               "capture_ms": prog.capture_ms, "pool_mb": prog.pool_bytes / 2**20,
+               "launches_a_scan": XLA_LAUNCHES[tag], "survivors": len(card),
+               "card_vs_cpu_jaccard": j, "card_vs_cpu_normals_2deg": normals_ok,
+               "vs_kernel_route_jaccard": j_kernel, "timed": timed}
+        paths[tag] = row
+        launches[f"xla_{tag}"] = dict(zip(KERNELS, graphed))
+        print(f"[chip_smoke] (y) {tag} pallas_ok=False: graphed == eager bit for bit ({len(card)} "
+              f"survivors), launches {graphed} a scan both ways; capture {prog.capture_ms:.1f} ms, "
+              f"pool {prog.pool_bytes / 2**20:.1f} MB; ms/scan from_soa..to_soa p50/p90 graphed "
+              f"{row['scan_graphed_ms'][0]:.3f}/{row['scan_graphed_ms'][1]:.3f}, eager "
+              f"{row['scan_eager_ms'][0]:.3f}/{row['scan_eager_ms'][1]:.3f} ({timed} timed each); "
+              f"card vs CPU jaccard {j:.5f}, normals within 2 deg {normals_ok:.5f} (CPU run "
+              f"{cpu_s:.1f} s); against the kernel route on the same scan jaccard {j_kernel:.5f} "
+              f"(another function) ({time.perf_counter() - t0:.1f} s)")
+        if tag != "config6":
+            profile.append((f"(y) {tag} pallas_ok=False graphed: 5 scans",
+                            lambda: [scan_graphed() for _ in range(5)]))
+            profile.append((f"(y) {tag} pallas_ok=False eager: 5 scans",
+                            lambda: [scan_eager() for _ in range(5)]))
+
+    for args in (("production", PRODUCTION_128K_CONFIG, bench_soa(), CAPACITY, TIMED),
+                 ("config2", CONFIG2, soa_positions(), CAPACITY, TIMED),
+                 ("config6", CONFIG6_NAMED, {"positions": scene(CONFIG6_POINTS)},
+                  CONFIG6_CAPACITY, 1)):
+        xla_path(*args)
+
+    world = torch.cuda.device_count()
+    ci, _, csec = spawn_world("captured_xla", world, "nccl", "cuda:{rank}")
+    c0 = ci[0]["captured"]
+    sharded = {"captured_ms": p50_p90(c0["captured_ms"]), "eager_ms": p50_p90(c0["eager_ms"]),
+               "capture_ms": c0["capture_ms"], "pool_mb": c0["pool_mb"],
+               "launches_a_step": c0["launches_a_step"], "points_a_rank": c0["capacity"]}
+    paths[f"sharded_nccl_{world}"] = sharded
+    launches["xla_sharded_captured"] = dict(zip(KERNELS, (
+        sum(i["captured"]["launches"][k] for i in ci) for k in range(len(KERNELS)))))
+    print(f"[chip_smoke] (y) sharded config 6 pallas_ok=False, NCCL world of {world}: every rank's "
+          f"captured step bit-equal to its eager step on two draws, launches "
+          f"{c0['launches_a_step']} a step, collectives {json.dumps(c0['collectives_a_step'])}; "
+          f"rank 0 p50/p90 captured {sharded['captured_ms'][0]:.3f}/{sharded['captured_ms'][1]:.3f}"
+          f" ms, eager {sharded['eager_ms'][0]:.3f}/{sharded['eager_ms'][1]:.3f}; capture "
+          f"{c0['capture_ms']:.1f} ms, pool {c0['pool_mb']:.1f} MB ({csec:.1f} s)")
+    graphs.clear()
+    return {"paths": paths, "launches": launches, "profile": profile}
+
+
+# ---- the committed fixtures on the card (phase (z)) -------------------------
+
+def fixture_slice(dev):
+    """Phase (z): ``tests/test_torch_fixture_parity.py``'s checks on the
+    card, under its tolerances: the ``parity_golden.npz`` stages, the
+    ring-scene pipeline (window against exact) and window floors, and the
+    HDL-32E floor, each window check on both routes."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_fixture_parity.py")
+    spec = importlib.util.spec_from_file_location("fixture_parity", path)
+    fx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fx)
+    t0 = time.perf_counter()
+    results = {}
+
+    def run(name, fn, *args):
+        try:
+            results[name] = fn(*args)
+        except AssertionError as e:
+            fail(f"(z) {name}: {e}")
+
+    golden = fx.golden_fixture(dev)
+    run("golden_nonfinite_and_dedup", fx.check_nonfinite_and_dedup, golden)
+    for invert in (False, True):
+        run(f"golden_crop_invert_{invert}", fx.check_crop, golden, invert)
+    run("golden_voxel_position_set", fx.check_voxel_position_set, golden)
+    run("golden_statistical_outliers", fx.check_statistical_outliers, golden)
+    run("golden_normals (rows by clause)", fx.check_normals_angles, golden)
+    run("golden_ground_plane (points whose side differs)", fx.check_ground_plane, golden)
+    for route in fx.ROUTES:
+        run(f"ring_pipeline_window_vs_exact_{route}", fx.check_ring_pipeline, dev, route)
+        run(f"ring_floor_{route}", fx.check_ring_floor, dev, route)
+        run(f"hdl32_floor_{route}", fx.check_hdl32_floor, dev, route)
+    run("ring_presorted_floor", fx.check_presorted_ring_floor, dev)
+    print(f"[chip_smoke] (z) the committed fixtures on the card, every check of "
+          f"tests/test_torch_fixture_parity.py at its tolerance: {json.dumps(results)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return results
 
 
 def main() -> None:
@@ -3257,6 +3516,12 @@ def main() -> None:
     # ---- captured programs against eager runs ----------------------------
     slice8 = graph_slice(dev, cfg, slice6["round"])
 
+    # ---- the XLA window route (pallas_ok=False) --------------------------
+    slice9 = xla_slice(dev)
+
+    # ---- the committed fixtures ------------------------------------------
+    fixture_slice(dev)
+
     if "--profile" in sys.argv:
         def single():
             for _ in range(5):
@@ -3268,7 +3533,7 @@ def main() -> None:
              (f"production: 1 vmapped batch of {BATCH}",
               lambda: engine.process_batch(bufs, ground_uniforms=batch_draws)),
              *slice3["profile"], *slice4["profile"], *slice5["profile"], *slice6["profile"],
-             *slice8["profile"]],
+             *slice8["profile"], *slice9["profile"]],
             dev, sys.argv[sys.argv.index("--profile") + 1],
         )
 
@@ -3279,7 +3544,7 @@ def main() -> None:
     paths = {"production_single": single_launches,
              **{f"production_{m}": v for m, v in batch_launches.items()},
              **slice3["launches"], **slice4["launches"], **slice5["launches"], **slice6["launches"],
-             **slice7["launches"], **slice8["launches"]}
+             **slice7["launches"], **slice8["launches"], **slice9["launches"]}
     for name, counts in paths.items():
         # config 3 (RANSAC alone) runs no kernel; drive() checked its zeros
         check(name == "config3" or any(counts.values()), f"path {name} launched no kernel")
@@ -3322,6 +3587,7 @@ def main() -> None:
     print(f"[chip_smoke] sharded ms/step: {json.dumps(slice7['timings'])}, collectives a step "
           f"{json.dumps(slice7['collectives'])}")
     print(f"[chip_smoke] captured programs against eager runs: {json.dumps(slice8['paths'])}")
+    print(f"[chip_smoke] the XLA window route (pallas_ok=False): {json.dumps(slice9['paths'])}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

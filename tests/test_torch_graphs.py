@@ -97,15 +97,25 @@ PATHS = {
                      "downsample.max_points": 2048},
     "ground_first": {**PRODUCTION, "remove_ground.before_voxel": False,
                      "remove_ground.before_neighborhood": True},
+    # pallas_ok=False, a settings field no config key reaches: the XLA
+    # window route, fused (config 2's with the radius count) and standalone
+    "production_xla": PRODUCTION,
+    "config2_xla": CONFIG2,
+    "unfused_xla": {**PRODUCTION, "fuse_neighborhood": False},
 }
 
 
 def _settings_params(path):
     spec = PATHS[path]
     if isinstance(spec, tuple):
-        return (pipeline.PipelineSettings(**spec[0]),
-                pipeline.PipelineParams.make(**spec[1], device="cpu"))
-    return pipeline.settings_from_config(spec), pipeline.params_from_config(spec, device="cpu")
+        settings = pipeline.PipelineSettings(**spec[0])
+        params = pipeline.PipelineParams.make(**spec[1], device="cpu")
+    else:
+        settings = pipeline.settings_from_config(spec)
+        params = pipeline.params_from_config(spec, device="cpu")
+    if path.endswith("_xla"):
+        settings = dataclasses.replace(settings, pallas_ok=False)
+    return settings, params
 
 
 def _scene_soa(seed=0, n=N_POINTS):

@@ -113,6 +113,54 @@ def test_smallest_eigvec_matches_reference(rng):
     np.testing.assert_allclose(port_n, ref_n, atol=2e-5)
 
 
+def _neighbourhood_entries(rng, noise, n_rows=400):
+    """Covariance entries (float32, centered) of ``n_rows`` neighbourhoods
+    of 3-11 points 0.3 m along a random direction, 25 m from the origin,
+    with Gaussian noise of std ``noise`` across it; and each one's float64
+    eigenvectors (ascending)."""
+    ents, vecs = [], []
+    for _ in range(n_rows):
+        d = rng.normal(size=3)
+        d /= np.linalg.norm(d)
+        k = int(rng.integers(3, 12))
+        q = (rng.uniform(-25, 25, 3) + rng.uniform(-0.3, 0.3, (k, 1)) * d
+             + rng.normal(size=(k, 3)) * noise).astype(np.float32)
+        e = q - q.mean(0)
+        a = e.T @ e
+        ents.append([a[i, j] for i, j in ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))])
+        e64 = e.astype(np.float64)
+        vecs.append(np.linalg.eigh(e64.T @ e64)[1])
+    return np.array(ents, np.float32).T, np.array(vecs)
+
+
+@pytest.mark.parametrize("noise", [1e-6, 1e-5, 1e-4])
+def test_line_neighbourhood_normals_are_off_the_line(rng, noise):
+    # nearly collinear points: the cross products of the smallest
+    # eigenvalue's rows cancel in float32 and the closed form's normal
+    # leans on the line; normals_from_entries takes that component off
+    # (ROADMAP fault 16). Tolerance: |n . v| <= 1e-5 against the float64
+    # line direction v, where the closed form alone leans further
+    ent, vecs = _neighbourhood_entries(rng, noise)
+    count = np.full(ent.shape[1], 8.0, np.float32)
+    n = normals._normals_from_entries(*map(_t, ent), _t(count)).numpy().T
+    lean = np.abs((torch.stack(linalg.smallest_eigvec_entries(*map(_t, ent)), -1).numpy()
+                   * vecs[:, :, 2]).sum(-1))
+    dots = np.abs((n * vecs[:, :, 2]).sum(-1))
+    assert dots.max() <= 1e-5, dots.max()
+    assert lean.max() > 10 * max(dots.max(), 1e-7), lean.max()
+
+
+def test_planar_neighbourhood_normals_keep_the_closed_form(rng):
+    # away from lines (a plane 0.1 m wide across the line, rows of 3-11
+    # points) the normal is the reference's closed form's within rounding
+    ent, _ = _neighbourhood_entries(rng, 0.1)
+    count = np.full(ent.shape[1], 8.0, np.float32)
+    port_n = normals._normals_from_entries(*map(_t, ent), _t(count)).numpy()
+    ref_n = np.asarray(ref_normals._normals_from_entries(*map(jnp.asarray, ent),
+                                                          jnp.asarray(count)))
+    np.testing.assert_allclose(port_n, ref_n, atol=2e-5)
+
+
 # ---------------------------------------------------- curve codes ----
 
 def test_curve_codes_bit_exact(rng):

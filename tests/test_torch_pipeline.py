@@ -108,13 +108,13 @@ def _survivors(positions, mask, normals):
     return {tuple(p): n for p, n in zip(np.round(pos, 5).tolist(), nrm)}
 
 
-def _compare_survivors(port, ref):
+def _compare_survivors(port, ref, degrees=2.0):
     """(jaccard of the rounded survivor positions, share of common
-    survivors whose normals agree within 2 degrees, sign-agnostic)."""
+    survivors whose normals agree within ``degrees``, sign-agnostic)."""
     common = port.keys() & ref.keys()
     jaccard = len(common) / max(len(port.keys() | ref.keys()), 1)
     cos = np.array([abs(float(np.dot(port[p], ref[p]))) for p in common])
-    return jaccard, float((cos >= np.cos(np.deg2rad(2.0))).mean())
+    return jaccard, float((cos >= np.cos(np.deg2rad(degrees))).mean())
 
 
 def test_presets_are_the_reference_presets():
@@ -216,6 +216,57 @@ def test_chained_pipeline_matches_reference(pallas_interpret):
     assert np.isfinite(soa["positions"]).all()
 
 
+def test_production_xla_route_matches_reference():
+    # PipelineSettings(pallas_ok=False) on the production preset: the
+    # reference's XLA window route, which it runs natively on the CPU
+    settings = dataclasses.replace(ref_pipeline.settings_from_config(CFG), pallas_ok=False)
+    rbuf, _ = ref_from_soa(_soa(), capacity=CAPACITY)
+    ref_out, ref_plane = ref_pipeline.build_pipeline(settings)(
+        rbuf, ref_pipeline.params_from_config(CFG), KEY
+    )
+    port_settings = dataclasses.replace(pipeline.settings_from_config(CFG), pallas_ok=False)
+    pbuf, _ = from_soa(_soa(), capacity=CAPACITY, device="cpu")
+    port_out, port_plane = pipeline.build_pipeline(port_settings)(
+        pbuf, pipeline.params_from_config(CFG, device="cpu"), None, _uniforms(settings)
+    )
+    assert port_out.capacity == ref_out.capacity == CFG["downsample.max_points"]
+    assert abs(float(port_plane[2])) > 0.999 and abs(float(ref_plane[2])) > 0.999
+    jaccard, normals_ok = _compare_survivors(
+        _survivors(port_out.positions.numpy(), port_out.mask.numpy(),
+                   port_out.attributes["normals"].numpy()),
+        _survivors(ref_out.positions, ref_out.mask, ref_out.attributes["normals"]),
+        degrees=1.0,
+    )
+    assert int(port_out.mask.sum()) > 1000
+    assert jaccard >= 0.995, jaccard
+    assert normals_ok >= 0.99, normals_ok
+
+
+def test_engine_pallas_ok_false_runs_the_xla_route():
+    # Preprocessor(pallas_ok=False): the engine's settings keep the XLA
+    # window route through update_config and set_tf_matrix, and its scan
+    # is build_pipeline's with those settings, bit for bit
+    from autodriver_pointcloud_preprocessor_tpu_torch.models.preprocessor import Preprocessor
+
+    engine = Preprocessor(CFG, device="cpu", pallas_ok=False)
+    settings = dataclasses.replace(pipeline.settings_from_config(CFG), pallas_ok=False)
+    assert engine.settings == settings
+    assert Preprocessor(CFG, device="cpu").settings.pallas_ok
+    buf, _ = from_soa(_soa(), capacity=CAPACITY, device="cpu")
+    u = _uniforms(settings)
+    got, got_plane = engine.process_buffer(buf, u)
+    want, want_plane = pipeline.build_pipeline(settings)(buf, engine.params, None, u)
+    assert torch.equal(got.mask, want.mask) and torch.equal(got.positions, want.positions)
+    assert torch.equal(got_plane, want_plane)
+    assert torch.equal(got.attributes["normals"], want.attributes["normals"])
+    engine.update_config({"voxel_size": 0.08})
+    engine.set_tf_matrix(np.eye(4))
+    engine.set_tf_matrix(np.eye(4))
+    assert engine.settings == dataclasses.replace(
+        pipeline.settings_from_config({**CFG, "voxel_size": 0.08, "_has_tf": True}),
+        pallas_ok=False)
+
+
 def test_neighborhood_overflow_thin_matches_reference(pallas_interpret):
     # a 2048 bucket below the ~3000 voxels: the binomial thin and the
     # pass-0 sort replace the prefix slice (a host-side branch in the port)
@@ -288,15 +339,13 @@ def test_front_only_pipeline_matches_reference(pallas_interpret):
 def test_unported_settings_raise(pallas_interpret, override):
     # the settings the port once refused now run and match the reference
     # (ground by height, ground last or before the neighbourhood, the other
-    # downsamplers, the subsampled vote, the 'wide' voxel keys); only the
-    # reference's XLA kernel variants (pallas_ok=False) still raise
-    cfg = {**CFG, **override}
-    port_settings = pipeline.settings_from_config(cfg)
-    if "pallas_ok" in override:
-        with pytest.raises(NotImplementedError, match="XLA window fallback"):
-            pipeline.stage_functions(dataclasses.replace(port_settings, **override))
-        return
-    settings = ref_pipeline.settings_from_config(cfg)
+    # downsamplers, the subsampled vote, the 'wide' voxel keys, and the XLA
+    # window route of pallas_ok=False, a settings field that no config key
+    # reaches); the name is kept from when they raised
+    direct = {k: v for k, v in override.items() if k == "pallas_ok"}
+    cfg = {**CFG, **{k: v for k, v in override.items() if k not in direct}}
+    port_settings = dataclasses.replace(pipeline.settings_from_config(cfg), **direct)
+    settings = dataclasses.replace(ref_pipeline.settings_from_config(cfg), **direct)
     assert port_settings == dataclasses.replace(
         pipeline.PipelineSettings(), **dataclasses.asdict(settings))
     assert [n for n, _ in pipeline.stage_functions(port_settings)] == [

@@ -60,6 +60,8 @@ WINDOW = dict(
     remove_statistical_outliers=True, nb_neighbors=8, estimate_normals=True, max_neighbors=8,
     knn_method="window", remove_ground=True, num_iterations=64, ransac_n=3,
 )
+#: test_parallel.py:436-441: ground ahead of the neighbourhood, a 2048 bucket
+GROUND_FIRST = dict(WINDOW, ground_before_neighborhood=True, post_downsample_capacity=2048)
 #: the outlier-only window stage: the keep-mask is the kNN-mean class
 OUTLIERS_ONLY = dict(
     remove_duplicates=False, crop_to_roi=False, voxel_downsample=False, estimate_normals=False,
@@ -156,9 +158,10 @@ class _Rank:
         self.draws = draws
         self.out = {}
 
-    def u(self):
-        """This rank's RANSAC draws: the reference's for shard ``rank``."""
-        return torch.from_numpy(self.draws[self.rank])
+    def u(self, h_local=H_LOCAL):
+        """This rank's RANSAC draws: the reference's for shard ``rank``,
+        ``h_local`` hypotheses."""
+        return torch.from_numpy(self.draws[h_local][self.rank])
 
     def stacked(self, t):
         """Every rank's ``t`` stacked on a leading rank axis."""
@@ -324,39 +327,64 @@ def _case_quality(r):
                halo512=masks[512])
 
 
-def _case_resurrect(r):
-    """(g) test_sharded_fused_neighborhood_never_resurrects (the
-    reference's case sets pallas_ok=False for CPU speed; the port has one
-    window route)."""
+def _resurrect_input():
+    """test_parallel.py:395-425's buffer: a uniform cube with a band of
+    live rows killed ahead of the stage."""
     rng = np.random.default_rng(5)
     n = 2048
     buf = _buf(rng.uniform(-10, 10, (n - 300, 3)).astype(np.float32), n)
     mask = buf.mask.clone()
     mask[200:900] = False
-    buf = buf.replace(mask=mask)
-    settings = PipelineSettings(
-        remove_statistical_outliers=True, nb_neighbors=8, estimate_normals=True,
-        max_neighbors=8, remove_ground=True, ground_before_voxel=True, ransac_n=3,
-        num_iterations=32, knn_method="window", voxel_downsample=False,
-    )
-    run = sh.build_sharded_pipeline(settings, r.mesh, "point")
+    return buf.replace(mask=mask)
+
+
+#: test_parallel.py:408-413's settings, but for the window route
+RESURRECT = dict(
+    remove_statistical_outliers=True, nb_neighbors=8, estimate_normals=True, max_neighbors=8,
+    remove_ground=True, ground_before_voxel=True, ransac_n=3, num_iterations=32,
+    knn_method="window", voxel_downsample=False,
+)
+
+
+def _case_resurrect(r):
+    """(g) test_sharded_fused_neighborhood_never_resurrects on the kernel
+    route (the reference's case runs the XLA route, ``_case_resurrect_xla``)."""
+    buf = _resurrect_input()
+    run = sh.build_sharded_pipeline(PipelineSettings(**RESURRECT), r.mesh, "point")
     out, _ = run(sh.shard_buffer(buf, r.mesh, "point"), _params(voxel_size=0.0),
                  torch.Generator().manual_seed(r.rank))
-    r.save("resurrect", live_in=int(mask.sum()), live_out=r.stacked(out.mask.sum()))
+    r.save("resurrect", live_in=int(buf.mask.sum()), live_out=r.stacked(out.mask.sum()))
+
+
+def _case_resurrect_xla(r):
+    """(g) test_parallel.py:395-425 with its own settings (pallas_ok=False:
+    the XLA window route) and the reference's draws (8 hypotheses a rank)."""
+    buf = _resurrect_input()
+    settings = PipelineSettings(**RESURRECT, pallas_ok=False)
+    run = sh.build_sharded_pipeline(settings, r.mesh, "point")
+    out, plane = run(sh.shard_buffer(buf, r.mesh, "point"), _params(voxel_size=0.0), None,
+                     r.u(8))
+    r.save_buffer("resurrect_xla", out, plane, live_in=int(buf.mask.sum()))
 
 
 def _case_ground_first(r):
     """(g) test_sharded_ground_first_defers_shrink_like_single_chip."""
     buf = _buf(_scene(np.random.default_rng(0)), 4096)
-    settings = PipelineSettings(
-        **dict(WINDOW, ground_before_neighborhood=True, post_downsample_capacity=2048),
-    )
+    settings = PipelineSettings(**GROUND_FIRST)
     params = _params(voxel_size=0.15, distance_threshold=0.08)
     out, plane = r.sharded(settings, buf, params)
     single, splane = r.single(settings, buf, params)
     r.save_buffer("ground_first", out, plane)
     if single is not None:
         r.save("ground_first", single_mask=single.mask, single_plane=splane)
+
+
+def _case_ground_first_xla(r):
+    """(g) test_parallel.py:428-454 with its own settings (pallas_ok=False)."""
+    buf = _buf(_scene(np.random.default_rng(0)), 4096)
+    settings = PipelineSettings(**GROUND_FIRST, pallas_ok=False)
+    out, plane = r.sharded(settings, buf, _params(voxel_size=0.15, distance_threshold=0.08))
+    r.save_buffer("ground_first_xla", out, plane)
 
 
 def _case_knobs(r):
@@ -452,6 +480,7 @@ PROBED = {
                                 ground_before_neighborhood=True, post_downsample_capacity=2048),
     "radius_unfused": dict(WINDOW, remove_radius_outliers=True, fuse_neighborhood=False),
     "height": dict(FULL, ground_method="height"),
+    "production_xla": dict(FULL, post_downsample_capacity=2048, pallas_ok=False),
 }
 
 
@@ -557,7 +586,8 @@ def _case_capture(r):
 CASES = (
     _case_halo, _case_ground, _case_exact, _case_production, _case_outlier_stats,
     _case_normals, _case_parity, _case_shrink, _case_radius, _case_window_full,
-    _case_quality, _case_resurrect, _case_ground_first, _case_knobs, _case_compact_keys,
+    _case_quality, _case_resurrect, _case_resurrect_xla, _case_ground_first,
+    _case_ground_first_xla, _case_knobs, _case_compact_keys,
     _case_warning, _case_scan_point, _case_capture,
 )
 
@@ -577,14 +607,18 @@ def _rank_main(rank, store, out_path, draws):
 
 
 def _reference_draws(key_seed=0):
-    """RANSAC draws of the reference's shard i: uniform(fold_in(key, i))."""
+    """RANSAC draws of the reference's shard i, uniform(fold_in(key, i)),
+    for 64 hypotheses (16 a rank) and for 32 (8 a rank)."""
     import jax
 
     key = jax.random.PRNGKey(key_seed)
-    return np.stack([
-        np.asarray(jax.random.uniform(jax.random.fold_in(key, i), (H_LOCAL, RANSAC_N)))
-        for i in range(WORLD)
-    ]).astype(np.float32)
+    return {
+        h: np.stack([
+            np.asarray(jax.random.uniform(jax.random.fold_in(key, i), (h, RANSAC_N)))
+            for i in range(WORLD)
+        ]).astype(np.float32)
+        for h in (H_LOCAL, 8)
+    }
 
 
 @pytest.fixture(scope="module")
@@ -630,8 +664,9 @@ def pallas_interpret(monkeypatch):
     rsh.build_sharded_pipeline.cache_clear()
 
 
-def _ref_sharded(settings_kw, soa, capacity, params_kw):
-    """The reference's sharded pipeline on 4 CPU devices, key PRNGKey(0)."""
+def _ref_sharded(settings_kw, soa, capacity, params_kw, mask=None):
+    """The reference's sharded pipeline on 4 CPU devices, key PRNGKey(0);
+    ``mask`` replaces the buffer's live mask."""
     import jax
 
     from autodriver_pointcloud_preprocessor_tpu.core import from_soa as ref_from_soa
@@ -641,6 +676,8 @@ def _ref_sharded(settings_kw, soa, capacity, params_kw):
 
     mesh = _ref_mesh()
     rbuf, _ = ref_from_soa(soa if isinstance(soa, dict) else {"positions": soa}, capacity=capacity)
+    if mask is not None:
+        rbuf = rbuf.with_mask(jax.numpy.asarray(mask))
     run = rsh.build_sharded_pipeline(RSettings(**settings_kw), mesh)
     out, plane = run(rsh.shard_buffer(rbuf, mesh), RParams.make(**params_kw),
                      jax.random.PRNGKey(0))
@@ -876,11 +913,43 @@ def test_sharded_fused_neighborhood_never_resurrects(port):
     assert 0 < live_out <= int(got["live_in"])
 
 
+def test_sharded_xla_route_never_resurrects_like_the_reference(port):
+    # test_parallel.py:395-425 as the reference runs it (pallas_ok=False)
+    got = _case(port, "resurrect_xla")
+    buf = _resurrect_input()
+    pos, mask, plane, normals = _ref_sharded(
+        dict(RESURRECT, pallas_ok=False), buf.positions.numpy()[:, :1748].T, 2048,
+        dict(voxel_size=0.0), mask=buf.mask.numpy())
+    assert 0 < int(got["mask"].sum()) <= int(got["live_in"])
+    np.testing.assert_allclose(got["plane"], plane, atol=1e-4)
+    _assert_close(_survivors(got["pos"], got["mask"], got["normals"]),
+                  _survivors(pos, mask, normals))
+
+
 def test_sharded_ground_first_defers_shrink_like_single_chip(port):
     got = _case(port, "ground_first")
     assert abs(got["plane"][2]) > 0.99 and abs(got["single_plane"][2]) > 0.99
     ns, nm = int(got["single_mask"].sum()), int(got["mask"].sum())
     assert nm > 0 and abs(ns - nm) / max(ns, 1) < 0.15, (ns, nm)
+
+
+def test_sharded_xla_route_ground_first_matches_the_reference(port):
+    # test_parallel.py:428-454 as the reference runs it (pallas_ok=False)
+    got = _case(port, "ground_first_xla")
+    pos, mask, plane, normals = _ref_sharded(
+        dict(GROUND_FIRST, pallas_ok=False), _scene(np.random.default_rng(0)), 4096,
+        dict(voxel_size=0.15, distance_threshold=0.08))
+    np.testing.assert_allclose(got["plane"], plane, atol=1e-4)
+    port, ref = (_survivors(got["pos"], got["mask"], got["normals"]),
+                 _survivors(pos, mask, normals))
+    # the reference's shrink slices a prefix of the holed voxel buffer and
+    # drops live points (ROADMAP fault 13); the port's keeps them, so the
+    # reference's survivors are the port's, less those
+    common = port.keys() & ref.keys()
+    assert len(port) > len(ref) > 200
+    assert len(common) >= 0.99 * len(ref), (len(common), len(ref))
+    cos = np.array([abs(float(np.dot(port[p], ref[p]))) for p in common])
+    assert float((cos >= np.cos(np.deg2rad(2.0))).mean()) >= 0.98
 
 
 def test_sharded_per_pass_window_tuple_reaches_the_kernel(port):
@@ -1041,11 +1110,6 @@ def test_sharded_step_captures_only_on_nccl_cards():
 def test_halo_must_be_a_multiple_of_128():
     with pytest.raises(ValueError, match="multiple of 128"):
         sh.make_local_run(PipelineSettings(), halo=100)
-
-
-def test_pallas_ok_false_raises():
-    with pytest.raises(NotImplementedError, match="XLA window fallback"):
-        sh.make_local_run(PipelineSettings(pallas_ok=False))
 
 
 def test_port_sharding_imports_no_jax_at_module_level():
