@@ -23,13 +23,30 @@ The device part, ``device_quantizer`` and ``compress_buffer``, is ported
 to PyTorch: the compaction of the live columns goes through K1
 (``ops/segmean.compact_rows``), and the blobs are byte-identical to the
 reference's for the same quantized input.
+
+The writers compress a blob's streams (three position streams, or the one
+raw stream, and one per attribute) concurrently on one process-wide
+thread pool, created at first use with one worker a usable core, at most
+8 (``_executor``); with one usable core they compress inline. Each stream
+is deterministic and ``zlib.compress`` and the varint sidecar release the
+GIL, so a blob costs about its slowest stream and its bytes are those of
+a serial writer. Longest streams first: a writer submits the attribute
+records as soon as their arrays exist, before it quantizes the positions
+(a merged round's float32 intensity and uint16 ring take the longest),
+then one task a position axis (varint, then DEFLATE). The caller joins the
+futures in wire order, so a worker's exception reaches it there. Tasks
+never submit into the pool, so no worker waits on another.
+``decompress_soa`` stays serial.
 """
 from __future__ import annotations
 
 import ctypes
+import os
 import struct
+import threading
 import zlib
-from typing import Dict, Optional
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -166,18 +183,66 @@ def _decode_i32_stream(data: bytes, count: int, native: bool = True) -> np.ndarr
 # codec
 # ---------------------------------------------------------------------------
 
-def _write_attrs(out: bytearray, attrs, level: int) -> None:
+#: a blob has 3 position streams and a few attribute streams
+_MAX_WORKERS = 8
+_pool: Optional[ThreadPoolExecutor] = None
+_pool_pid: Optional[int] = None
+_pool_lock = threading.Lock()
+
+
+def _executor() -> Optional[ThreadPoolExecutor]:
+    """The process's stream pool (created at first use, and again in a
+    process forked from one that had it); None with one usable core."""
+    global _pool, _pool_pid
+    with _pool_lock:
+        if _pool_pid != os.getpid():
+            workers = min(len(os.sched_getaffinity(0)), _MAX_WORKERS)
+            _pool = (ThreadPoolExecutor(workers, thread_name_prefix="apcz")
+                     if workers > 1 else None)
+            _pool_pid = os.getpid()
+        return _pool
+
+
+def _submit(fn, *args) -> Future:
+    """``fn(*args)`` on the stream pool, or here and now with one core."""
+    pool = _executor()
+    if pool is not None:
+        return pool.submit(fn, *args)
+    done: Future = Future()
+    done.set_result(fn(*args))
+    return done
+
+
+def _attr_record(name: str, arr: np.ndarray, level: int) -> bytes:
+    """One attribute's record: name, dtype code, columns, DEFLATE body."""
+    code = _DTYPE_CODES[arr.dtype]
+    cols = arr.shape[1] if arr.ndim == 2 else 0
+    body = zlib.compress(np.ascontiguousarray(arr), level)
+    nm = name.encode()
+    return struct.pack("<B", len(nm)) + nm + struct.pack("<BBI", code, cols, len(body)) + body
+
+
+def _submit_attrs(attrs, level: int) -> List[Future]:
+    """Start compressing every attribute of ``attrs`` ((name, ndarray)
+    pairs, in wire order); ``_write_attrs`` joins them."""
+    return [_submit(_attr_record, name, arr, level) for name, arr in attrs]
+
+
+def _write_attrs(out: bytearray, records: List[Future]) -> None:
     """Append the attribute section: count byte + per-attr records."""
-    out += struct.pack("<B", len(attrs))
-    for name, arr in attrs:
-        cols = arr.shape[1] if arr.ndim == 2 else 0
-        body = zlib.compress(np.ascontiguousarray(arr).tobytes(), level)
-        nm = name.encode()
-        out += struct.pack(
-            "<B", len(nm)
-        ) + nm + struct.pack(
-            "<BBI", _DTYPE_CODES[arr.dtype], cols, len(body)
-        ) + body
+    out += struct.pack("<B", len(records))
+    for record in records:
+        out += record.result()
+
+
+def _position_stream(values: np.ndarray, level: int) -> bytes:
+    """One quantized axis: varint stream, then DEFLATE."""
+    return zlib.compress(_encode_i32_stream(values), level)
+
+
+def _write_stream(out: bytearray, stream: Future) -> None:
+    body = stream.result()
+    out += struct.pack("<I", len(body)) + body
 
 
 def _write_quantized_container(
@@ -186,23 +251,24 @@ def _write_quantized_container(
     step: np.ndarray,
     n: int,
     qbits: int,
-    attrs,
+    records: List[Future],
     level: int,
 ) -> bytes:
     """The ONE writer of the quantized-positions APCZ container.
 
-    ``q``: int32[3, n] quantized position columns; ``attrs``: list of
-    (name, ndarray). Shared by compress_soa, compress_buffer, and the
-    StreamingEngine egress so the wire format cannot drift.
+    ``q``: int32[3, n] quantized position columns; ``records``: the
+    attributes' futures from ``_submit_attrs``. Shared by compress_soa,
+    compress_buffer, and the StreamingEngine egress so the wire format
+    cannot drift.
     """
+    streams = [_submit(_position_stream, q[c], level) for c in range(3)]
     out = bytearray()
     out += _MAGIC
     out += struct.pack("<BBIB", _VERSION, 0, n, qbits)
     out += struct.pack("<6d", *lo, *step)
-    for c in range(3):
-        stream = zlib.compress(_encode_i32_stream(q[c]), level)
-        out += struct.pack("<I", len(stream)) + stream
-    _write_attrs(out, attrs, level)
+    for stream in streams:
+        _write_stream(out, stream)
+    _write_attrs(out, records)
     return bytes(out)
 
 
@@ -217,10 +283,6 @@ def encode_device_quantized(
     meta)`` from ``device_quantizer`` -> APCZ blob. Row 3, when present, is
     quantized intensity."""
     n = int(meta[0])
-    offset = 2 ** (qbits - 1)
-    q = packed[:3, :n].astype(np.int32) + offset
-    lo = meta[[1, 3, 5]].astype(np.float64)
-    step = meta[[2, 4, 6]].astype(np.float64)
     attrs = []
     if packed.shape[0] > 3:
         attrs.append(
@@ -229,7 +291,12 @@ def encode_device_quantized(
                 packed[3, :n].astype(np.float32) / np.float32(intensity_scale),
             )
         )
-    return _write_quantized_container(q, lo, step, n, qbits, attrs, level)
+    records = _submit_attrs(attrs, level)
+    offset = 2 ** (qbits - 1)
+    q = packed[:3, :n].astype(np.int32) + offset
+    lo = meta[[1, 3, 5]].astype(np.float64)
+    step = meta[[2, 4, 6]].astype(np.float64)
+    return _write_quantized_container(q, lo, step, n, qbits, records, level)
 
 
 def compress_soa(
@@ -246,23 +313,24 @@ def compress_soa(
         for name, arr in sorted(soa.items())
         if name != "positions" and arr is not None
     ]
+    records = _submit_attrs(attrs, level)  # before the quantization: see above
     if quantization_bits > 0 and n > 0:
         lo = positions.min(axis=0).astype(np.float64)
         hi = positions.max(axis=0).astype(np.float64)
         scale = (2**quantization_bits - 1) / np.maximum(hi - lo, 1e-30)
         q = ((positions - lo) * scale + 0.5).astype(np.int64).astype(np.int32)
         return _write_quantized_container(
-            q.T, lo, 1.0 / scale, n, quantization_bits, attrs, level
+            q.T, lo, 1.0 / scale, n, quantization_bits, records, level
         )
 
     # lossless raw-float path (quantization_bits == 0)
+    stream = _submit(zlib.compress, np.ascontiguousarray(positions), level)
     out = bytearray()
     out += _MAGIC
     out += struct.pack("<BBIB", _VERSION, 0, n, quantization_bits)
     out += struct.pack("<6d", *([0.0] * 6))
-    stream = zlib.compress(positions.tobytes(), level)
-    out += struct.pack("<I", len(stream)) + stream
-    _write_attrs(out, attrs, level)
+    _write_stream(out, stream)
+    _write_attrs(out, records)
     return bytes(out)
 
 
